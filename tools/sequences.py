@@ -1,0 +1,53 @@
+"""Named synthetic RGBD sequences, the same frames for either package.
+
+Each entry is a config dict (``SlamConfig.from_dict``), a trajectory of
+``io.synthetic`` and its render recipe.  ``build`` takes the package's own
+``SlamConfig`` class and ``synthetic`` module, so the JAX reference tool
+and the port's tools render identical frames without either importing the
+other.
+
+* ``orbit``: the sequence of ``chip_smoke.py`` phase 3 — default
+  full-width ``SlamConfig()`` (640x480 TUM fr1 camera, 512 features, 8
+  levels) on a 120-frame orbit, 1% depth noise.
+* ``hall``: the bench's tracking run (``bench.py``: ``_tracking_cfg`` and
+  its ``RenderFeed``) — the 450-frame 3-petal clover in a hall-sized room
+  (room scale 2.5), a wide-FOV VGA camera, 2.5% depth noise, depth on the
+  wire at stride 2.  Run with loops off, it is ROADMAP A5's bar.
+"""
+
+from __future__ import annotations
+
+SEQUENCES = {
+    "orbit": dict(
+        cfg={},
+        trajectory=("orbit_trajectory",
+                    dict(n_frames=120, radius=0.6, yaw_amplitude=0.3)),
+        render=dict(depth_noise=0.01, seed=0),
+    ),
+    "hall": dict(
+        cfg=dict(
+            camera=dict(fx=260.0, fy=260.0, cx=319.5, cy=239.5,
+                        depth_max=20.0, depth_wire_stride=2),
+            loop=dict(min_gap_kf=8, consistency=2),
+            tracker=dict(kf_min_interval=2, kf_tracked_ratio=0.8),
+        ),
+        trajectory=("clover_trajectory",
+                    dict(n_frames=450, n_petals=3, radius=2.5,
+                         yaw_amplitude=0.4)),
+        render=dict(depth_noise=0.025, seed=3, room_scale=2.5),
+    ),
+}
+
+
+def build(name: str, config_cls, synthetic, n_frames: int | None = None):
+    """(cfg, trajectory, frames) of sequence ``name``; ``n_frames`` keeps the
+    first frames only (the same frames the full sequence starts with)."""
+    seq = SEQUENCES[name]
+    cfg = config_cls.from_dict(seq["cfg"])
+    fn, kw = seq["trajectory"]
+    traj = getattr(synthetic, fn)(**kw)
+    if n_frames is not None:
+        traj.poses_twc = traj.poses_twc[:n_frames]
+        traj.timestamps = traj.timestamps[:n_frames]
+    frames = synthetic.render_sequence(cfg.camera, traj, **seq["render"])
+    return cfg, traj, frames

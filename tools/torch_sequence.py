@@ -1,0 +1,87 @@
+"""Run the PyTorch port over a named sequence of ``tools/sequences.py`` on
+the CUDA card and print its accuracy and speed.
+
+The JAX reference on the same frames comes from
+``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --sequence NAME``.
+
+    python tools/torch_sequence.py [--sequence orbit|hall] [--frames N]
+        [--warmup 10]
+
+Prints one JSON line: ATE (m), fps after the warm-up frames, keyframes,
+points, lost frames, keyframe-event frame indices, host syncs per frame and
+the card.  A frame that starts LOST stops the run (relocalization is not
+ported yet): the line then names that frame and the exit code is 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.dirname(__file__))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import sequences  # noqa: E402
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sequence", choices=sorted(sequences.SEQUENCES),
+                    default="hall")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="keep the first N frames of the sequence")
+    ap.add_argument("--warmup", type=int, default=10)
+    args = ap.parse_args()
+
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.geometry import align
+    from boslam_tpu_torch.io import synthetic
+    from boslam_tpu_torch.slam import SlamSystem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, traj, frames = sequences.build(args.sequence, SlamConfig, synthetic,
+                                        args.frames)
+    slam = SlamSystem(cfg)
+    out = {"sequence": args.sequence, "frames": len(frames),
+           "card": torch.cuda.get_device_name(0)}
+    t_warm = None
+    try:
+        for i, (ts, rgb, depth) in enumerate(frames):
+            if i == args.warmup:
+                slam.flush()
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            slam.feed(ts, rgb, depth)
+        slam.flush()
+    except NotImplementedError:
+        out["lost_at_frame"] = i
+        print(json.dumps(out), flush=True)
+        sys.exit(1)
+    torch.cuda.synchronize()
+    if t_warm is not None:
+        out["fps_after_warmup"] = (len(frames) - args.warmup) / (
+            time.perf_counter() - t_warm)
+    _, est = slam.trajectory()
+    rmse, _ = align.ate_rmse(torch.from_numpy(est[:, 4:].astype(np.float32)),
+                             torch.from_numpy(traj.poses_twc[:, 4:].astype(np.float32)))
+    out.update(
+        ate_m=float(rmse),
+        keyframes=slam.n_keyframes,
+        points=slam.n_points,
+        lost=sum(1 for m in slam.metrics if m.get("lost", False)),
+        kf_event_frames=[i for i, m in enumerate(slam.metrics)
+                         if m.get("event") in ("init", "keyframe")],
+        host_syncs_per_frame=slam.sync.count / len(frames),
+    )
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
