@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from boslam_tpu_torch.features.frontend import FrameFeatures
+from boslam_tpu_torch.loopclosure.vocab import LoopState
 from boslam_tpu_torch.mapping.map_state import MapState
 from boslam_tpu_torch.tracking.tracker import TrackState
 
@@ -62,3 +63,11 @@ def frame_features_from_numpy(d: Mapping[str, np.ndarray], device) -> FrameFeatu
 
 def frame_features_to_numpy(f: FrameFeatures) -> dict:
     return _to_numpy(f, ("desc",))
+
+
+def loop_state_from_numpy(d: Mapping[str, np.ndarray], device) -> LoopState:
+    return _from_numpy(LoopState, d, device)
+
+
+def loop_state_to_numpy(ls: LoopState) -> dict:
+    return _to_numpy(ls, ("vocab",))

@@ -45,8 +45,7 @@ def main() -> None:
 
     gt = None
     if args.synthetic:
-        # Loop closing is not ported yet, so the orbit does not close.
-        traj = synth.orbit_trajectory(args.synthetic, radius=0.6, loop=False)
+        traj = synth.orbit_trajectory(args.synthetic, radius=0.6, loop=True)
         frames = synth.render_sequence(cfg.camera, traj)
         gt = (traj.timestamps, traj.poses_twc)
     elif args.tum:

@@ -49,13 +49,14 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
 
 def hamming_matrix_mxu(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """Hamming distances via one matrix product:
-    popcount(a ^ b) = popcount(a) + popcount(b) - 2 * dot(bits_a, bits_b)."""
+    popcount(a ^ b) = popcount(a) + popcount(b) - 2 * dot(bits_a, bits_b).
+    [..., N, 8] x [..., M, 8] -> [..., N, M] (leading dims broadcast)."""
     bits_a = unpack_bits(desc_a)
     bits_b = unpack_bits(desc_b)
-    dot = bits_a @ bits_b.T
+    dot = bits_a @ bits_b.transpose(-1, -2)
     na = torch.sum(popcount_u32(desc_a), dim=-1).to(torch.float32)
     nb = torch.sum(popcount_u32(desc_b), dim=-1).to(torch.float32)
-    return torch.round(na[:, None] + nb[None, :] - 2.0 * dot).to(torch.int32)
+    return torch.round(na[..., :, None] + nb[..., None, :] - 2.0 * dot).to(torch.int32)
 
 
 def match_top2(
@@ -70,29 +71,30 @@ def match_top2(
     """Row-wise best + second-best with ratio test, threshold, mutual check.
 
     Args:
-      dist: [N, M] integer distances.
-      valid_a: [N] bool, valid_b: [M] bool.
-      extra_mask: optional [N, M] bool of admissible pairs.
+      dist: [..., N, M] integer distances.
+      valid_a: [..., N] bool, valid_b: [..., M] bool.
+      extra_mask: optional [..., N, M] bool of admissible pairs.
 
     Returns:
-      (match_idx [N] int32 into B, -1 if unmatched; match_mask [N] bool;
-       match_dist [N] int32).  Ties go to the first index, as in the
+      (match_idx [..., N] int32 into B, -1 if unmatched; match_mask bool;
+       match_dist int32).  Ties go to the first index, as in the
       reference (``argmin`` returns the first minimum in both frameworks).
     """
     big = torch.full((), _BIG, dtype=dist.dtype, device=dist.device)
-    masked = torch.where(valid_b[None, :], dist, big)
+    masked = torch.where(valid_b[..., None, :], dist, big)
     if extra_mask is not None:
         masked = torch.where(extra_mask, masked, big)
-    best_idx = torch.argmin(masked, dim=1)
-    n = masked.shape[0]
-    rows = torch.arange(n, device=dist.device)
-    best = masked[rows, best_idx]
-    second = torch.min(masked.index_put((rows, best_idx), big), dim=1).values
+    best_idx = torch.argmin(masked, dim=-1, keepdim=True)
+    best = torch.gather(masked, -1, best_idx)[..., 0]
+    second = torch.min(masked.scatter(-1, best_idx, _BIG), dim=-1).values
+    best_idx = best_idx[..., 0]
     ok = valid_a & (best <= max_dist) & (
         best.to(torch.float32) <= ratio * second.to(torch.float32)
     )
     if mutual:
-        col_best = torch.argmin(torch.where(valid_a[:, None], masked, big), dim=0)
-        ok = ok & (col_best[best_idx] == rows)
+        col_best = torch.argmin(
+            torch.where(valid_a[..., :, None], masked, big), dim=-2)
+        rows = torch.arange(masked.shape[-2], device=dist.device)
+        ok = ok & (torch.gather(col_best, -1, best_idx) == rows)
     idx = torch.where(ok, best_idx, -1)
     return idx.to(torch.int32), ok, best.to(torch.int32)

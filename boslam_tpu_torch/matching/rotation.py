@@ -24,22 +24,26 @@ def rotation_consistency(
     """Filter matches by dominant relative rotation.
 
     Args:
-      angle_a: [N] f32 orientation of the keypoint on side A (radians).
-      angle_b: [N] f32 orientation of the MATCHED feature on side B.
-      ok: [N] bool candidate match mask.
+      angle_a: [..., N] f32 orientation of the keypoint on side A (radians).
+      angle_b: [..., N] f32 orientation of the MATCHED feature on side B.
+      ok: [..., N] bool candidate match mask.
       min_matches: below this many candidates the filter is a no-op.
 
-    Returns the refined [N] bool mask.
+    Returns the refined [..., N] bool mask; leading dims are independent.
     """
     diff = angle_a - angle_b
     rot = torch.fmod(diff, TWO_PI)
     rot = torch.where((rot != 0) & (rot < 0), rot + TWO_PI, rot)
     binw = TWO_PI / n_bins
     b = torch.clamp((rot / binw).to(torch.int32), 0, n_bins - 1).long()
+    b = b.expand(ok.shape)
     seg = torch.where(ok, b, n_bins)
-    hist = torch.zeros(n_bins + 1, dtype=torch.float32, device=ok.device)
-    hist = hist.index_add(0, seg, torch.ones_like(angle_a))[:n_bins]
-    thresh = torch.sort(hist).values[-keep_top]
-    good_bin = hist >= torch.clamp(thresh, min=1.0)
-    keep = ok & good_bin[b]
-    return torch.where(torch.sum(ok) >= min_matches, keep, ok)
+    hist = torch.zeros(seg.shape[:-1] + (n_bins + 1,), dtype=torch.float32,
+                       device=ok.device)
+    hist = hist.scatter_add(-1, seg, torch.ones(seg.shape, device=ok.device))
+    hist = hist[..., :n_bins]
+    thresh = torch.sort(hist, dim=-1).values[..., -keep_top]
+    good_bin = hist >= torch.clamp(thresh, min=1.0)[..., None]
+    keep = ok & torch.gather(good_bin, -1, b)
+    return torch.where(torch.sum(ok, dim=-1, keepdim=True) >= min_matches,
+                       keep, ok)

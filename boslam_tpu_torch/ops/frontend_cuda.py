@@ -7,28 +7,19 @@ extract_patches.cu``) replace the JAX package's Pallas kernels
 its kernel for a CUDA tensor and runs its plain PyTorch twin for a CPU
 tensor; there is no other route.  ``LAUNCHES`` counts kernel launches only.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/boslam_tpu_torch/`` at the repository root, one shared library per
-source with a plain C interface, and bound with ``ctypes``.
+The sources are built and bound by ``ops.build`` (``nvcc`` for ``sm_90a``,
+a plain C interface, ``ctypes``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 import torch.nn.functional as F
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boslam_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from boslam_tpu_torch.ops.build import (  # noqa: F401  (re-exported)
+    BUILD_DIR, KERNELS, LAUNCHES, NVCC_FLAGS, _lib_path, build_kernels,
+    check_launch, kernel_fn, reset_launches,
+)
 
 # FAST radius-3 Bresenham circle, (dx, dy), clockwise from 12 o'clock.
 CIRCLE = (
@@ -38,87 +29,9 @@ CIRCLE = (
 HALF = 15
 PATCH = 2 * HALF + 2
 
-# Kernel name -> (source file, C entry point, ctypes argtypes).
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNELS = {
-    "fast_rank": ("fast_rank.cu", "boslam_fast_rank",
-                  [_P, _P, _P, _I, _I, _F, _F, _F, _I, _P]),
-    "extract_patches": ("extract_patches.cu", "boslam_extract_patches",
-                        [_P, _P, _P, _P, _I, _I, _I, _P]),
-}
-
-LAUNCHES = {name: 0 for name in KERNELS}
-_LIBS: dict = {}
-_LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-
-
-def _lib_path(name: str) -> Path:
-    src = _CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}.{digest}.so"
-
-
-def build_kernels(names=None, verbose: bool = False) -> dict:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together.  Returns {name: .so path}.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    names = list(KERNELS) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(_CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if verbose and log:
-            print(f"[nvcc {name}]\n{log}", flush=True)
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: _lib_path(name) for name in names}
-
-
-def _fn(name: str):
-    with _LOCK:
-        if name not in _LIBS:
-            path = build_kernels([name])[name]
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
-            fn.restype = ctypes.c_int
-            _LIBS[name] = (lib, fn)
-        return _LIBS[name][1]
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+# The kernels of this module; ``KERNELS`` and ``LAUNCHES`` (ops.build) name
+# every kernel of the port.
+FRONTEND_KERNELS = ("fast_rank", "extract_patches")
 
 
 def _check_f32_2d(name: str, t: torch.Tensor) -> None:
@@ -209,13 +122,13 @@ def fast_rank(level, t_hi: float, t_lo: float, boost_hi: float, border: int):
     h, w = level.shape
     rank = torch.empty_like(level)
     raw = torch.empty_like(level)
-    fn = _fn("fast_rank")
+    fn = kernel_fn("fast_rank")
     with torch.cuda.device(level.device):
         stream = torch.cuda.current_stream(level.device).cuda_stream
         err = fn(level.data_ptr(), rank.data_ptr(), raw.data_ptr(), h, w,
                  float(t_hi), float(t_lo), float(boost_hi), int(border),
                  stream)
-    _check_launch("fast_rank", err)
+    check_launch("fast_rank", err)
     LAUNCHES["fast_rank"] += 1
     return rank, raw
 
@@ -261,11 +174,11 @@ def extract_patches(img, ys, xs):
     ys, xs = ys.contiguous(), xs.contiguous()
     k = ys.shape[0]
     out = torch.empty((k, PATCH, PATCH), dtype=img.dtype, device=img.device)
-    fn = _fn("extract_patches")
+    fn = kernel_fn("extract_patches")
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = fn(img.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
                  k, h, w, stream)
-    _check_launch("extract_patches", err)
+    check_launch("extract_patches", err)
     LAUNCHES["extract_patches"] += 1
     return out

@@ -8,10 +8,14 @@ the same step into one device program whose branches (``lax.switch`` /
 ``lax.cond``) run on the device; here each branch is taken on the host, and
 every such read of a device scalar is counted by a ``HostSync``.
 
+A frame that starts LOST takes the lost branch (relocalization), and the
+keyframe event ends with the keyframe's BoW vector and loop detection.
+
 The host sees one packed ``[OUT_DIM]`` row per frame, the reference's
-device->host contract, field for field.  Loop detection, relocalization,
-asynchronous mapping and global BA are not ported yet: the row's loop
-fields keep their no-keyframe values, and a frame that starts LOST raises.
+device->host contract, field for field.  ``flush`` drains the rows and runs
+the host's rare events: vocabulary training and refresh, loop verification
+(dispatched at one flush, resolved at the next) and loop correction.
+Asynchronous mapping and global BA are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,11 +30,17 @@ from boslam_tpu_torch.config import SlamConfig
 from boslam_tpu_torch.device import resolve_device
 from boslam_tpu_torch.features.frontend import extract_features
 from boslam_tpu_torch.geometry import se3
+from boslam_tpu_torch.loopclosure import (
+    compute_bow, detect_loop, empty_loop_state, train_vocab,
+    verify_loops_batch,
+)
 from boslam_tpu_torch.mapping import map_ops
 from boslam_tpu_torch.mapping.map_state import empty_map
 from boslam_tpu_torch.solvers.local_ba import local_bundle_adjustment
+from boslam_tpu_torch.solvers.pose_graph import close_loop_update
 from boslam_tpu_torch.tracking.tracker import (
-    ST_LOST, ST_OK, ST_UNINIT, HostSync, init_track_state, track_frame,
+    ST_LOST, ST_OK, ST_UNINIT, HostSync, init_track_state, relocalize,
+    track_frame,
 )
 from boslam_tpu_torch.utils.tensor_ops import at
 from boslam_tpu_torch.utils.trajectory import anchor_trajectory
@@ -114,13 +124,14 @@ O_CULL0 = 31         # [31:42] cull chain record: [victim_slot (-1 = none),
 OUT_DIM = 42
 
 
-def frame_step_core(cfg: SlamConfig, map_state, track, img, depth_u16,
-                    sync: HostSync | None = None):
+def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
+                    img, depth_u16, sync: HostSync | None = None):
     """Process one RGBD frame on its device.
 
     ``img`` is the u8 gray wire image and ``depth_u16`` the u16 wire depth
-    (at ``cfg.camera.depth_factor``), both tensors on the working device.
-    Returns (map', track', row[OUT_DIM] f32).
+    (at ``cfg.camera.depth_factor``), both tensors on the working device;
+    ``key`` is the ``torch.Generator`` relocalization draws from.
+    Returns (map', loop', track', row[OUT_DIM] f32).
     """
     sync = HostSync() if sync is None else sync
     dev = img.device
@@ -175,6 +186,8 @@ def frame_step_core(cfg: SlamConfig, map_state, track, img, depth_u16,
                 cull_info = evict_info
             else:
                 st, cull_info = map_ops.cull_one_keyframe(cfg, st)
+            loop_state = compute_bow(cfg, loop_state, st, kf_id)
+            loop_state, det = detect_loop(cfg, loop_state, st, kf_id)
             map_state = st
             track = track._replace(
                 last_kf=kf_id,
@@ -186,17 +199,19 @@ def frame_step_core(cfg: SlamConfig, map_state, track, img, depth_u16,
             row[O_BA0] = ba.cost0
             row[O_BA1] = ba.cost1
             row[O_BAE] = ba.n_edges.to(torch.float32)
+            row[O_LCAND] = det.candidate.to(torch.float32)
+            row[O_LSCORE] = det.score
+            row[O_LCONS] = det.consistent.to(torch.float32)
             row[O_CULL0:O_CULL0 + 11] = cull_info
         row[O_NINL] = out.n_inliers.to(torch.float32)
         row[O_NMATCH] = out.n_matches.to(torch.float32)
         row[O_NVIS] = out.n_visible.to(torch.float32)
         row[O_LOST] = out.lost.to(torch.float32)
     elif status == ST_LOST:
-        raise NotImplementedError(
-            "tracking is lost and relocalization (tracker.relocalize, the "
-            "lost branch) is not ported yet: it lands with the loop-closure "
-            "and relocalization slice"
-        )
+        track, good, n_inl = relocalize(cfg, map_state, loop_state, track,
+                                        feats, key, sync)
+        row[O_NINL] = n_inl.to(torch.float32)
+        row[O_RELOC] = torch.where(good, 2.0, 1.0)
     else:
         raise ValueError(f"unknown track status {status}")
 
@@ -209,27 +224,36 @@ def frame_step_core(cfg: SlamConfig, map_state, track, img, depth_u16,
     row[O_REL0:O_REL0 + 7] = se3.pose_compose(
         track.pose_cw, se3.pose_inv(at(map_state.kf_pose, ref))
     )
-    return map_state, track, row
+    return map_state, loop_state, track, row
 
 
 class SlamSystem:
     """Sequential RGBD SLAM engine over one camera stream.
 
     ``feed()`` runs a frame and queues its packed row; ``flush()`` drains
-    the rows in one readback and does the host bookkeeping.
-    ``process_frame()`` is the synchronous wrapper (feed + flush).  The
-    engine runs on ``cuda`` unless ``device`` says otherwise; without a card
-    it raises.
+    the rows in one readback and runs the host events (vocabulary training,
+    loop verification and correction).  ``process_frame()`` is the
+    synchronous wrapper (feed + flush).  The engine runs on ``cuda`` unless
+    ``device`` says otherwise; without a card it raises.
     """
+
+    # Max consistent candidates verified per drain; extras are dropped
+    # (they re-fire on the next keyframe if genuine).
+    MAX_VERIFY = 4
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, chunk: int = 16,
                  device=None):
+        if cfg.loop.run_global_ba:
+            raise NotImplementedError(
+                "loop.run_global_ba: global bundle adjustment after a loop "
+                "closure is not ported yet (ROADMAP A7)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
         self.map = empty_map(cfg, self.device)
+        self.loop = empty_loop_state(cfg, self.device)
         self.track = init_track_state(self.device)
-        # Drawn from by relocalization, which is not ported yet.
+        # Drawn from by relocalization and loop verification (RANSAC).
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.sync = HostSync()
         self.timestamps: List[float] = []
@@ -240,6 +264,14 @@ class SlamSystem:
         # T_victim_parent [7]).
         self.cull_chain: dict = {}
         self.metrics: List[dict] = []
+        self.n_loops_closed = 0
+        self.n_global_ba = 0
+        self._vocab_trained_at = -1  # n_kf at last vocabulary (re)train
+        # In-flight loop verification batch (resolved at the NEXT flush) and
+        # a host mirror of each keyframe slot's current seq (from the packed
+        # rows: inserts and culls), which guards stale closures.
+        self._pending_verify = None
+        self._kf_seq_host: dict = {}
         self._pending_rows: List[torch.Tensor] = []
         self._pending_ts: List[float] = []
         self._pending_t0: List[float] = []
@@ -265,9 +297,9 @@ class SlamSystem:
         cam = self.cfg.camera
         if depth.dtype != np.uint16 or depth.shape != cam.depth_wire_shape:
             depth = depth_wire(depth, cam)
-        self.map, self.track, row = frame_step_core(
-            self.cfg, self.map, self.track, self._upload(img),
-            self._upload(depth), self.sync,
+        self.map, self.loop, self.track, row = frame_step_core(
+            self.cfg, self.map, self.loop, self.track, self.generator,
+            self._upload(img), self._upload(depth), self.sync,
         )
         self._pending_rows.append(row)
         self._pending_ts.append(ts)
@@ -277,13 +309,16 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def flush(self) -> None:
-        """Drain pending frames: ONE packed readback, then host bookkeeping."""
+        """Drain pending frames: ONE packed readback, then host events."""
         if not self._pending_rows:
+            # End of stream: close the last in-flight loop.
+            self._resolve_pending_verify()
             return
         rows = torch.stack(self._pending_rows).cpu().numpy()
         ts_list, t0_list = self._pending_ts, self._pending_t0
         self._pending_rows, self._pending_ts, self._pending_t0 = [], [], []
         t_drain = time.perf_counter()
+        loop_requests = []  # (kf_id, cand, rec): one closure per drain
         for ts, t0, r in zip(ts_list, t0_list, rows):
             self.timestamps.append(ts)
             self.poses_twc.append(r[O_POSE0:O_POSE0 + 7].copy())
@@ -295,6 +330,7 @@ class SlamSystem:
                     int(r[O_CULL0 + 2]), int(r[O_CULL0 + 3]),
                     r[O_CULL0 + 4:O_CULL0 + 11].copy(),
                 )
+                self._kf_seq_host[int(r[O_CULL0])] = None  # slot vacated
             rec = {
                 "ts": ts,
                 "status": int(r[O_STATUS]),
@@ -304,10 +340,16 @@ class SlamSystem:
                 "lost": bool(r[O_LOST] > 0.5),
                 "dt_ms": (t_drain - t0) * 1e3,
             }
-            if r[O_LOST] > 0.5:
+            if r[O_RELOC] > 0.5:
+                rec["event"] = "relocalize"
+                rec["reloc_ok"] = bool(r[O_RELOC] > 1.5)
+            elif r[O_LOST] > 0.5:
                 rec["event"] = "lost"
             elif r[O_KF] > 0.5:
                 kf_id = int(r[O_KFID])
+                # The slot's new tenant: seq = monotonic n_kf before the
+                # increment the row reports.
+                self._kf_seq_host[kf_id] = int(r[O_NKF]) - 1
                 rec["event"] = "init" if kf_id == 0 else "keyframe"
                 rec.update(
                     kf_id=kf_id,
@@ -315,7 +357,84 @@ class SlamSystem:
                     ba_cost1=float(r[O_BA1]),
                     ba_edges=int(r[O_BAE]),
                 )
+                if r[O_LCAND] >= 0:
+                    rec["loop_candidate"] = int(r[O_LCAND])
+                    rec["loop_score"] = float(r[O_LSCORE])
+                if r[O_LCONS] > 0.5:
+                    loop_requests.append((kf_id, int(r[O_LCAND]), rec))
             self.metrics.append(rec)
+
+        # Vocabulary lifecycle: first training once enough keyframes exist,
+        # then a periodic refresh (kf_bow rows are recomputed each time).
+        n_kf = int(rows[-1][O_NKF])
+        lc = self.cfg.loop
+        due = (
+            (self._vocab_trained_at < 0 and n_kf >= lc.vocab_train_kf)
+            or (self._vocab_trained_at >= 0
+                and n_kf - self._vocab_trained_at >= lc.vocab_refresh_kf)
+        )
+        if due:
+            self.loop = train_vocab(self.cfg, self.loop, self.map)
+            self._vocab_trained_at = n_kf
+        # Resolve the previous drain's verification batch (at most one
+        # closure), then dispatch this drain's candidates.
+        self._resolve_pending_verify()
+        self._dispatch_verify(loop_requests)
+
+    # ------------------------------------------------------------------
+    def _dispatch_verify(self, loop_requests) -> None:
+        """Verify this drain's candidates in one batch; the results are
+        read at the next flush."""
+        reqs, seen = [], set()
+        for kf_id, cand, rec in loop_requests:
+            if cand >= 0 and (kf_id, cand) not in seen:
+                seen.add((kf_id, cand))
+                reqs.append((kf_id, cand, rec))
+        reqs = reqs[: self.MAX_VERIFY]
+        if not reqs:
+            return
+        # Pad to the fixed batch size by repeating the first request (the
+        # reference's static batch; the host reads only the first n).
+        pad = reqs + [reqs[0]] * (self.MAX_VERIFY - len(reqs))
+        kf_ids = torch.tensor([r[0] for r in pad], dtype=torch.int32,
+                              device=self.device)
+        cands = torch.tensor([r[1] for r in pad], dtype=torch.int32,
+                             device=self.device)
+        ok, t_rel, n_inl, midx, mok = verify_loops_batch(
+            self.cfg, self.map, kf_ids, cands, self.generator)
+        # Endpoint identity at dispatch, from the host mirror: a slot culled
+        # or reused before the resolve must drop the closure.
+        guards = [
+            (self._kf_seq_host.get(kf), self._kf_seq_host.get(cand))
+            for kf, cand, _ in reqs
+        ]
+        self._pending_verify = (ok, t_rel, n_inl, midx, mok, reqs, guards,
+                                self.n_loops_closed, self.n_global_ba)
+
+    def _resolve_pending_verify(self) -> None:
+        """Read the previous drain's verification results and run at most
+        one pose-graph correction."""
+        if self._pending_verify is None:
+            return
+        (ok, t_rel, n_inl, midx, mok, reqs, guards, loops0, gba0) = (
+            self._pending_verify
+        )
+        self._pending_verify = None
+        ok_h, inl_h = ok.cpu().numpy(), n_inl.cpu().numpy()
+        for i, (kf_id, cand, rec) in enumerate(reqs):
+            rec["loop_inliers"] = int(inl_h[i])
+        if self.n_loops_closed != loops0 or self.n_global_ba != gba0:
+            return  # trajectory moved since dispatch; stale measurement
+        for i, (kf_id, cand, rec) in enumerate(reqs):
+            fresh = (
+                guards[i][0] is not None
+                and guards[i][1] is not None
+                and self._kf_seq_host.get(kf_id) == guards[i][0]
+                and self._kf_seq_host.get(cand) == guards[i][1]
+            )
+            if fresh and bool(ok_h[i]):
+                self._close_loop(kf_id, cand, t_rel[i], midx[i], mok[i], rec)
+                break
 
     # ------------------------------------------------------------------
     def process_frame(
@@ -327,11 +446,39 @@ class SlamSystem:
         return self.poses_twc[-1]
 
     # ------------------------------------------------------------------
+    def _close_loop(self, kf_id: int, cand: int, t_rel, midx, mok,
+                    rec=None) -> None:
+        """Correct the loop: point fusion + loop edge + essential-graph
+        optimization + map propagation (``close_loop_update``)."""
+        cfg = self.cfg
+        dev = self.device
+        self.map, pose_kf = close_loop_update(
+            cfg, self.map, torch.tensor(kf_id, dtype=torch.int32, device=dev),
+            torch.tensor(cand, dtype=torch.int32, device=dev), t_rel, midx,
+            mok,
+        )
+        self.track = self.track._replace(
+            pose_cw=pose_kf, velocity=se3.pose_identity(device=dev)
+        )
+        self.n_loops_closed += 1
+        (rec if rec is not None else self.metrics[-1])["event"] = "loop_closed"
+
+    # ------------------------------------------------------------------
+    def run_global_ba(self) -> dict:
+        """Full-map bundle adjustment: not ported yet (ROADMAP A7)."""
+        raise NotImplementedError(
+            "run_global_ba: global bundle adjustment is not ported yet "
+            "(ROADMAP A7)")
+
+    # ------------------------------------------------------------------
     def trajectory(self):
         """(timestamps, poses_twc [T, 7]) with every frame re-anchored to the
         current pose of its reference keyframe (culled references chase the
-        cull chain)."""
+        cull chain), so loop corrections made after a frame passed still
+        correct it."""
         self.flush()
+        # A flush may have just dispatched a verification: land it first.
+        self._resolve_pending_verify()
         ts = np.asarray(self.timestamps)
         raw = np.stack(self.poses_twc)
         out = anchor_trajectory(

@@ -23,10 +23,10 @@ def octave_inv_sigma2(octave: torch.Tensor, scale_factor: float) -> torch.Tensor
 
 
 def cho_solve(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``H x = b`` for symmetric positive definite ``H`` [D, D] by
-    Cholesky, without a host synchronization.  A failed factorization gives
-    NaN, as the reference's ``cho_factor`` does; callers zero non-finite
-    steps."""
+    """Solve ``H x = b`` for symmetric positive definite ``H`` [..., D, D]
+    by Cholesky, without a host synchronization.  A failed factorization
+    gives NaN, as the reference's ``cho_factor`` does; callers zero
+    non-finite steps."""
     L, info = torch.linalg.cholesky_ex(H)
-    x = torch.cholesky_solve(b[:, None], L)[:, 0]
-    return torch.where(info == 0, x, float("nan"))
+    x = torch.cholesky_solve(b[..., None], L)[..., 0]
+    return torch.where((info == 0)[..., None], x, float("nan"))

@@ -4,7 +4,9 @@ local-map second pass and re-optimization (``boslam_tpu.tracking.tracker``).
 
 The reference's ``lax.cond`` around the wide fallback pass is a host branch
 here: one host synchronization per frame, counted by the caller's
-``HostSync``.  Relocalization (the lost path) is not ported yet.
+``HostSync``.  Relocalization (the lost path) matches the frame against the
+BoW candidate keyframes once a vocabulary exists, else against the whole
+map, and solves RANSAC PnP + robust GN for every candidate as one batch.
 """
 
 from __future__ import annotations
@@ -14,12 +16,22 @@ from typing import NamedTuple
 import torch
 
 from boslam_tpu_torch.config import SlamConfig
+from boslam_tpu_torch.geometry import camera as cam_mod
 from boslam_tpu_torch.geometry import se3
-from boslam_tpu_torch.matching import projection
+from boslam_tpu_torch.loopclosure import vocab as vocab_mod
+from boslam_tpu_torch.matching import bow as bow_mod
+from boslam_tpu_torch.matching import hamming, projection, rotation
+from boslam_tpu_torch.ops.hamming_cuda import fused_match_top2
 from boslam_tpu_torch.solvers.pose_opt import optimize_pose
-from boslam_tpu_torch.utils.tensor_ops import at
+from boslam_tpu_torch.solvers.ransac import ransac_pnp
+from boslam_tpu_torch.utils.tensor_ops import at, top_k
 
 ST_UNINIT, ST_OK, ST_LOST = 0, 1, 2
+
+# Map size from which relocalization's whole-map match goes through the
+# streaming matcher (ops.hamming_cuda, kernel B3) instead of the
+# materialized [N, M] pipeline, as in the reference.
+FUSED_MATCH_MIN_POINTS = 32768
 
 
 class HostSync:
@@ -204,3 +216,123 @@ def track_frame(cfg: SlamConfig, map_state, track: TrackState, feats,
         ]),
     )
     return new_track, out
+
+
+def _reloc_solve(cfg: SlamConfig, pts_w, feats, ok, key):
+    """Shared tail of relocalization, batched over candidates ([R, N]
+    inputs): RANSAC PnP (reprojection-scored consensus, hypotheses from
+    depth-backed minimal sets) + robust GN refine.  Returns (good [R],
+    pose [R, 7], n_inliers [R])."""
+    res = ransac_pnp(
+        cfg, pts_w, feats.uv, feats.xyz, feats.has_depth, ok, key,
+        n_hypotheses=cfg.tracker.ransac_iters,
+        min_inliers=cfg.tracker.min_inliers,
+    )
+    refined = optimize_pose(
+        cfg, res.pose, pts_w, feats.uv, feats.depth,
+        feats.has_depth & ok, ok, feats.octave, inliers0=res.inliers,
+    )
+    good = res.ok & (refined.n_inliers >= cfg.tracker.min_inliers)
+    return good, refined.pose, refined.n_inliers
+
+
+def _bow_candidates(cfg: SlamConfig, map_state, loop_state, feats):
+    """The top-R BoW candidate keyframes, each matched by vocabulary word
+    and lifted to world points: (points [R, N, 3], matched [R, N])."""
+    P = map_state.pt_xyz.shape[0]
+    N = feats.desc.shape[0]
+    R = cfg.tracker.reloc_candidates
+    frame_bow = vocab_mod.bow_vector(cfg, loop_state.vocab, feats.desc,
+                                     feats.valid, idf=loop_state.idf)
+    scores = loop_state.kf_bow @ frame_bow
+    _, cands = top_k(torch.where(map_state.kf_valid, scores, -1.0), R)
+    # Depthless frame keypoints can match too: the PnP consensus is
+    # reprojection-scored, so they vote without a 3D backprojection.
+    idx, ok, _ = bow_mod.search_by_bow(
+        loop_state.vocab, feats.desc, feats.valid, map_state.kf_desc[cands],
+        map_state.kf_kp_valid[cands] & (map_state.kf_depth[cands] > 0),
+        max_dist=cfg.matcher.hamming_high, ratio=0.9,
+        angle_a=feats.angle, angle_b=map_state.kf_angle[cands],
+    )
+    # World points of the matched keyframe slots: the bound map point where
+    # one exists, else the keypoint's depth backprojection.
+    j = torch.clamp(idx, 0, N - 1).long()
+    obs = torch.gather(map_state.kf_obs_pt[cands], 1, j)
+    uv = torch.gather(map_state.kf_uv[cands], 1, j[..., None].expand(R, N, 2))
+    z = torch.gather(map_state.kf_depth[cands], 1, j)
+    xc = cam_mod.backproject(cfg.camera, uv, z)
+    xw_bp = se3.pose_apply(se3.pose_inv(map_state.kf_pose[cands])[:, None, :], xc)
+    pts_w = torch.where((obs >= 0)[..., None],
+                        map_state.pt_xyz[torch.clamp(obs, 0, P - 1).long()], xw_bp)
+    return pts_w, ok
+
+
+def _global_candidates(cfg: SlamConfig, map_state, feats):
+    """The whole map matched without a window (cold-start fallback before a
+    vocabulary exists), padded to the R-wide batch with masked rows."""
+    P = map_state.pt_xyz.shape[0]
+    N = feats.desc.shape[0]
+    R = cfg.tracker.reloc_candidates
+    dev = feats.desc.device
+    if P >= FUSED_MATCH_MIN_POINTS:
+        # r = inf disables the projection window: a pure global match.
+        idx, ok, _ = fused_match_top2(
+            feats.desc, feats.uv, torch.full((N,), torch.inf, device=dev),
+            feats.valid & feats.has_depth,
+            map_state.pt_desc, torch.zeros((P, 2), device=dev),
+            map_state.pt_valid,
+            max_dist=cfg.matcher.hamming_low, ratio=0.85, mutual=True,
+        )
+    else:
+        dist = hamming.hamming_matrix_mxu(feats.desc, map_state.pt_desc)
+        idx, ok, _ = hamming.match_top2(
+            dist, feats.valid & feats.has_depth, map_state.pt_valid,
+            max_dist=cfg.matcher.hamming_low, ratio=0.85, mutual=True,
+        )
+    pid = torch.clamp(idx, 0, P - 1).long()
+    ok = rotation.rotation_consistency(feats.angle, map_state.pt_angle[pid], ok)
+    idx = torch.where(ok, idx, -1)
+    pts1 = map_state.pt_xyz[torch.clamp(idx, 0, P - 1).long()]
+    ok_r = torch.zeros((R, N), dtype=torch.bool, device=dev)
+    ok_r[0] = ok
+    return pts1.expand(R, N, 3), ok_r
+
+
+def relocalize(cfg: SlamConfig, map_state, loop_state, track: TrackState,
+               feats, key, sync: HostSync | None = None):
+    """Relocalization (the lost path).
+
+    With a trained vocabulary: the top-R BoW candidate keyframes, each
+    matched by vocabulary word and solved; before one exists: the whole map
+    (through kernel B3 from ``FUSED_MATCH_MIN_POINTS`` points).  Every
+    candidate is solved in one batch and the most-inlier verified one wins.
+    The reference's ``lax.cond`` on ``vocab_ready`` is a host branch here,
+    counted by ``sync``.  ``key`` is a ``torch.Generator`` or the RANSAC
+    Gumbel noise [R, H, N].  Returns (TrackState, good, n_inliers).
+    """
+    sync = HostSync() if sync is None else sync
+    if sync.flag(loop_state.vocab_ready):
+        pts_w, ok = _bow_candidates(cfg, map_state, loop_state, feats)
+    else:
+        pts_w, ok = _global_candidates(cfg, map_state, feats)
+    good_r, pose_r, ninl_r = _reloc_solve(cfg, pts_w, feats, ok, key)
+    best = torch.argmax(torch.where(good_r, ninl_r, -1)).reshape(1)
+    good = good_r[best][0]
+    pose = pose_r[best][0]
+    n_inl = ninl_r[best][0]
+    # Re-center the reference keyframe on the recovered pose: local-scope
+    # tracking builds its map around last_kf.
+    cam_w = se3.pose_inv(pose)[4:]
+    kf_w = se3.pose_inv(map_state.kf_pose)[:, 4:]
+    d2 = torch.sum((kf_w - cam_w[None, :]) ** 2, dim=-1)
+    nearest = torch.argmin(
+        torch.where(map_state.kf_valid, d2, torch.inf)).to(torch.int32)
+    dev = pose.device
+    new_track = track._replace(
+        pose_cw=torch.where(good, pose, track.pose_cw),
+        velocity=se3.pose_identity(device=dev),
+        status=torch.where(good, ST_OK, ST_LOST).to(torch.int32),
+        last_kf=torch.where(good, nearest, track.last_kf),
+        frame_idx=track.frame_idx + 1,
+    )
+    return new_track, good, n_inl

@@ -11,7 +11,19 @@ Phases, each fatal on failure:
      library call, the eager per-call time, and the roofline bound;
   3. end to end: ``run_sequence`` over a 120-frame full-width synthetic orbit
      on the card, every kernel launch counted, ATE against groundtruth held
-     to the JAX reference's ATE on the same sequence.
+     to the JAX reference's ATE on the same sequence;
+  4. the streaming Hamming matcher (kernel B3) against its plain version at
+     relocalization's shapes (512 frame rows against 65536 map points, no
+     window; a random windowed problem; a ragged map), with its device,
+     plain, eager and bound times;
+  5. ``kidnap``: the orbit with blanked frames on a 65536-point map, so that
+     tracking is lost twice and relocalized once through the whole-map path
+     (B3) and once through BoW; relocalization frames, successes, lost
+     frames and closed loops must be the JAX reference's, B3's launches the
+     whole-map attempts, and the ATE within the bound;
+  6. ``loop``: a full-width sequence on which the JAX reference closes a
+     loop; the port must close as many, with the ATE within the bound.
+  Phases 5 and 6 also time the rare events on the card, synchronized.
 
 Prints the ``kernels`` JSON line, the card line and, last, the device JSON.
 Exits non-zero without a result when no CUDA device is visible or the port
@@ -22,10 +34,13 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import subprocess
 import sys
 import time
 import warnings
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
 
 # ATE of the JAX reference engine (full-width SlamConfig(), SlamSystem with
 # MAX_VERIFY = 0, i.e. loop verification off) on the sequence of phase 3,
@@ -34,9 +49,26 @@ import warnings
 JAX_REFERENCE_ATE_M = 0.02130824886262417
 ATE_FACTOR, ATE_SLACK_M = 1.25, 0.005
 
+# The JAX reference on the sequences of phases 5 and 6 (``tools/sequences.py``),
+# loop verification on (MAX_VERIFY = 4), measured on the CPU by
+# ``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --sequence NAME --loops``.
+JAX_REFERENCE = {
+    "kidnap": dict(ate_m=0.020950505509972572, reloc_frames=[9, 10, 71, 72],
+                   reloc_ok_frames=[10, 72],
+                   reloc_paths=["global", "global", "bow", "bow"],
+                   lost_frames=[8, 70], n_loops_closed=0),
+    "loop": dict(ate_m=0.12142354995012283, reloc_frames=[], reloc_ok_frames=[],
+                 reloc_paths=[], lost_frames=[], n_loops_closed=1),
+}
+
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12  # B3's distance product, as the TPU computes it
+
+# Kernel B3 cases: (name, frame rows, map points, no window).
+MATCH_CASES = (("reloc", 512, 65536, True), ("window", 512, 65536, False),
+               ("ragged", 512, 65536 - 77, False))
 
 N_FRAMES, WARMUP = 120, 10
 FAST_RTOL, FAST_ATOL = 1e-5, 1e-3
@@ -93,6 +125,188 @@ def device_ms(fn, iters: int = 20) -> float:
             fn()
     graph.replay()
     return _median_event_ms(graph.replay, iters)
+
+
+def match_problem(dev, n, m, r_inf, seed=0):
+    """A matching problem of kernel B3's shapes: random 256-bit words, with
+    three quarters of the frame rows copied into random map columns with 0
+    to 12 bits flipped and placed 3 px from their keypoints; 90% of the rows
+    valid, 80% of the columns visible.  ``r_inf``: no window."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    da = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    db = rng.integers(0, 2**32, size=(m, 8), dtype=np.uint64).astype(np.uint32)
+    rows = rng.permutation(n)[: 3 * n // 4]
+    cols = rng.choice(m, size=rows.size, replace=False)
+    flips = np.zeros((rows.size, 256), bool)
+    for i, k in enumerate(rng.integers(0, 13, rows.size)):
+        flips[i, rng.choice(256, k, replace=False)] = True
+    words = (flips.reshape(-1, 8, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    db[cols] = da[rows] ^ words
+    ua = rng.uniform(0, (640.0, 480.0), size=(n, 2)).astype(np.float32)
+    ub = rng.uniform(0, (640.0, 480.0), size=(m, 2)).astype(np.float32)
+    ub[cols] = ua[rows] + 3.0
+    r = (np.full(n, np.inf, np.float32) if r_inf
+         else rng.uniform(8.0, 40.0, size=n).astype(np.float32))
+    arrays = [da.view(np.int32), ua, r, rng.random(n) < 0.9, db.view(np.int32),
+              ub, rng.random(m) < 0.8]
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def match_bound(n, m):
+    """(bound ms, what bounds it) of B3 at N x M: the distance product as
+    the TPU computes it (2*N*M*256 bf16 operations) against the bytes in
+    (words, pixels, radius, masks) and out (best, second, index, colarg)."""
+    ops = 2.0 * n * m * 256
+    bytes_ = n * (32 + 8 + 4 + 1 + 12) + m * (32 + 8 + 1 + 4)
+    t_ops = ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_matcher(dev):
+    """Phase 4: kernel B3 against its plain version, exact; times at the
+    relocalization shape."""
+    import torch
+
+    from boslam_tpu_torch.ops import hamming_cuda as hc
+
+    out = dict(err=0.0)
+    for name, n, m, r_inf in MATCH_CASES:
+        prob = match_problem(dev, n, m, r_inf)
+        for mutual in (True, False):
+            for ratio in (1.0, 0.85):
+                kw = dict(max_dist=64, ratio=ratio, mutual=mutual)
+                idx, ok, dist = hc.fused_match_top2(*prob, **kw)
+                idx_p, ok_p, dist_p = hc.fused_match_top2_plain(*prob, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(ok, ok_p) and torch.equal(idx, idx_p)
+                        and torch.equal(dist[ok_p], dist_p[ok_p])):
+                    fail(f"fused_match {name} mutual={mutual} ratio={ratio}: "
+                         f"kernel and plain version differ")
+                if int(ok_p.sum()) < n // 4:
+                    fail(f"fused_match {name}: only {int(ok_p.sum())} matches")
+                out["err"] = max(out["err"], float(
+                    (dist[ok_p] - dist_p[ok_p]).abs().max()))
+        print(f"[fused_match] {name} N={n} M={m}: kernel = plain in all 4 "
+              f"settings, {int(ok_p.sum())} matches at ratio 0.85", flush=True)
+        if name == "reloc":
+            kw = dict(max_dist=50, ratio=0.85, mutual=True)
+            out["ms"] = device_ms(lambda: hc.fused_match_tiles(*prob))
+            out["plain"] = device_ms(lambda: hc.fused_match_top2_plain(*prob, **kw),
+                                     iters=3)
+            out["eager"] = call_ms(lambda: hc.fused_match_top2(*prob, **kw))
+            out["bound"], out["bound_by"] = match_bound(n, m)
+            print(f"[fused_match] {name}: device ms {out['ms']:.4f} (plain "
+                  f"{out['plain']:.4f}), eager ms per call with the epilogue "
+                  f"{out['eager']:.4f}, bound {out['bound']:.5f} ms "
+                  f"({out['bound_by']})", flush=True)
+    return out
+
+
+def timed_events():
+    """Wrap the rare events the engine binds by name in ``slam`` (train_vocab,
+    verify_loops_batch, close_loop_update) in synchronized host clocks.
+    Returns ({event: [ms, ...]}, restore)."""
+    import torch
+
+    from boslam_tpu_torch import slam as slam_mod
+
+    times = collections.defaultdict(list)
+    saved = []
+    for name in ("train_vocab", "verify_loops_batch", "close_loop_update"):
+        fn = getattr(slam_mod, name)
+        saved.append((name, fn))
+
+        def wrap(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _fn(*a, **k)
+            torch.cuda.synchronize()
+            times[_name].append((time.perf_counter() - t0) * 1e3)
+            return res
+        setattr(slam_mod, name, wrap)
+
+    def restore():
+        for name, fn in saved:
+            setattr(slam_mod, name, fn)
+    return times, restore
+
+
+def run_events(name, fc):
+    """Phases 5 and 6: a named sequence with lost frames or loops, every
+    frame synchronized and timed, held to the JAX reference's events."""
+    import numpy as np
+    import torch
+
+    import sequences
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.geometry import align
+    from boslam_tpu_torch.io import synthetic
+    from boslam_tpu_torch.slam import SlamSystem
+
+    ref = JAX_REFERENCE[name]
+    t0 = time.perf_counter()
+    cfg, traj, frames = sequences.build(name, SlamConfig, synthetic)
+    print(f"[{name}] rendered {len(frames)} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    events, restore = timed_events()
+    fc.reset_launches()
+    try:
+        slam = SlamSystem(cfg)
+        ready, frame_ms = [], []
+        for f in frames:
+            ready.append(bool(slam.loop.vocab_ready))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            slam.feed(*f)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+        slam.flush()
+        _, est = slam.trajectory()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(fc.LAUNCHES)
+    m = slam.metrics
+    reloc = [i for i, r in enumerate(m) if "reloc_ok" in r]
+    got = dict(
+        reloc_frames=reloc,
+        reloc_ok_frames=[i for i in reloc if m[i]["reloc_ok"]],
+        reloc_paths=["bow" if ready[i] else "global" for i in reloc],
+        lost_frames=[i for i, r in enumerate(m) if r["lost"]],
+        n_loops_closed=slam.n_loops_closed,
+    )
+    rmse, _ = align.ate_rmse(
+        torch.from_numpy(est[:, 4:].astype(np.float32)),
+        torch.from_numpy(traj.poses_twc[:, 4:].astype(np.float32)))
+    ate = float(rmse)
+    n_global = got["reloc_paths"].count("global")
+    report = dict(got, ate_m=ate, jax_reference_ate_m=ref["ate_m"],
+                  launches=launches, global_reloc_attempts=n_global,
+                  reloc_frame_ms={str(i): frame_ms[i] for i in reloc},
+                  event_ms={k: v for k, v in events.items()},
+                  frame_ms_median=float(np.median(frame_ms)))
+    print(f"[{name}] {json.dumps(report)}", flush=True)
+    if not np.all(np.isfinite(est)) or est.shape != (len(frames), 7):
+        fail(f"{name}: trajectory not finite or wrong shape {est.shape}")
+    for k, v in got.items():
+        if v != ref[k]:
+            fail(f"{name}: {k} {v}, the JAX reference has {ref[k]}")
+    bound = ATE_FACTOR * ref["ate_m"] + ATE_SLACK_M
+    if not ate <= bound:
+        fail(f"{name}: ATE {ate:.5f} m above the bound {bound:.5f} m")
+    for k in fc.FRONTEND_KERNELS:
+        if launches[k] != cfg.orb.n_levels * len(frames):
+            fail(f"{name}: {k}: {launches[k]} launches, expected "
+                 f"{cfg.orb.n_levels * len(frames)}")
+    if launches["fused_match"] != n_global:
+        fail(f"{name}: fused_match launched {launches['fused_match']} times "
+             f"for {n_global} whole-map relocalization attempts")
+    return report
 
 
 def main() -> None:
@@ -250,13 +464,24 @@ def main() -> None:
         fail(f"trajectory not finite or wrong shape {est.shape}")
     if n_lost:
         fail(f"{n_lost} lost frames")
-    for name in fc.KERNELS:
+    for name in fc.FRONTEND_KERNELS:
         if launches[name] != orb.n_levels * N_FRAMES:
             fail(f"{name}: {launches[name]} launches, expected "
                  f"{orb.n_levels * N_FRAMES}")
     bound = ATE_FACTOR * JAX_REFERENCE_ATE_M + ATE_SLACK_M
     if not ate <= bound:
         fail(f"ATE {ate:.5f} m above the bound {bound:.5f} m")
+
+    # ---- 4. kernel B3 against its plain version -----------------------------
+    match = check_matcher(dev)
+
+    # ---- 5, 6. relocalization and loop closing ------------------------------
+    for name in JAX_REFERENCE:
+        report = run_events(name, fc)
+        if name == "kidnap":
+            match["launches"] = report["launches"]["fused_match"]
+            if match["launches"] < 1:
+                fail("kidnap: fused_match was never launched")
 
     def bound_of(bytes_, ops):
         t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
@@ -278,9 +503,18 @@ def main() -> None:
          "launches": launches["extract_patches"], "max_abs_err": patch["err"],
          "ms": patch["ms"], "plain_ms": patch["plain"], "bound_ms": p_bound,
          "bound_by": p_by, "library_ms": patch["lib"]},
+        {"name": "fused_match", "route": "cuda",
+         "source": "boslam_tpu_torch/csrc/fused_match.cu",
+         "replaces": "boslam_tpu/ops/hamming_pallas.py:145",
+         "launches": match["launches"], "max_abs_err": match["err"],
+         "ms": match["ms"], "plain_ms": match["plain"],
+         "bound_ms": match["bound"], "bound_by": match["bound_by"],
+         "library_ms": None},
     ]
-    print("[note] ms, plain_ms, library_ms and bound_ms are sums over the 8 "
-          "levels of one 640x480 frame; ms, plain_ms and library_ms are "
+    print("[note] fast_rank and extract_patches: ms, plain_ms, library_ms and "
+          "bound_ms are sums over the 8 levels of one 640x480 frame, launches "
+          "from phase 3; fused_match: one call at 512 x 65536 without a "
+          "window, launches from phase 5; ms, plain_ms and library_ms are "
           "device times from CUDA-graph replay", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

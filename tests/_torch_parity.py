@@ -72,6 +72,30 @@ def jax_engine(cfg_j, frames):
     return slam
 
 
+def port_engine(cfg_t, frames, vocab_ready=None):
+    """The port's SlamSystem on the CPU with loop verification off, fed
+    ``frames``; ``vocab_ready``, a list, gets what each frame's step saw."""
+    from boslam_tpu_torch.slam import SlamSystem
+
+    slam = SlamSystem(cfg_t, device="cpu")
+    slam.MAX_VERIFY = 0
+    for f in frames:
+        if vocab_ready is not None:
+            vocab_ready.append(bool(slam.loop.vocab_ready))
+        slam.feed(*f)
+    slam.flush()
+    return slam
+
+
+def blank(frames, indices):
+    """``frames`` with the frames ``indices`` black and without depth."""
+    out = list(frames)
+    for i in indices:
+        ts, rgb, depth = out[i]
+        out[i] = (ts, np.zeros_like(rgb), np.zeros_like(depth))
+    return out
+
+
 def jax_features(cfg_j, rgb, depth):
     from boslam_tpu.features import extract_features
 

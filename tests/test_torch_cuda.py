@@ -7,7 +7,8 @@ alone; the tests' conftest imports JAX, so there run it as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: ``fast_rank`` raw/rank at rtol 1e-5 / atol 1e-3 with identical
-corner support; ``extract_patches`` bit-exact."""
+corner support; ``extract_patches`` bit-exact; ``fused_match_top2`` indices,
+masks and matched distances exact."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from boslam_tpu_torch.config import CameraConfig
 from boslam_tpu_torch.features.frontend import _BOOST_HI, _LEVEL_BORDER
 from boslam_tpu_torch.io import synthetic
 from boslam_tpu_torch.ops import frontend_cuda as fc
+from boslam_tpu_torch.ops import hamming_cuda as hc
 from boslam_tpu_torch.slam import to_gray_u8
 
 RTOL, ATOL = 1e-5, 1e-3
@@ -70,8 +72,56 @@ def test_wrappers_count_launches_and_reject_mixed_devices(cuda_device):
     fc.fast_rank(gray, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
     idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
     fc.extract_patches(gray, idx, idx)
-    assert fc.LAUNCHES == {"fast_rank": 1, "extract_patches": 1}
+    assert fc.LAUNCHES == {"fast_rank": 1, "extract_patches": 1, "fused_match": 0}
     fc.fast_rank_plain(gray, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
     assert fc.LAUNCHES["fast_rank"] == 1
     with pytest.raises(ValueError):
         fc.extract_patches(gray, idx.cpu(), idx.cpu())
+
+
+def _match_problem(device, n, m, seed=0, r_inf=False):
+    """Map descriptors a quarter of which are frame descriptors with one bit
+    flipped, placed 3 px from their keypoints."""
+    rng = np.random.default_rng(seed)
+    da = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    db = rng.integers(0, 2**32, size=(m, 8), dtype=np.uint64).astype(np.uint32)
+    idx = rng.integers(0, n, size=m // 4)
+    db[: m // 4] = da[idx] ^ (np.uint32(1) << rng.integers(0, 32, (m // 4, 8)).astype(np.uint32))
+    ua = rng.uniform(0, (640.0, 480.0), size=(n, 2)).astype(np.float32)
+    ub = rng.uniform(0, (640.0, 480.0), size=(m, 2)).astype(np.float32)
+    ub[: m // 4] = ua[idx] + 3.0
+    r = np.full(n, np.inf, np.float32) if r_inf else \
+        rng.uniform(8.0, 40.0, size=n).astype(np.float32)
+    arrays = [da.view(np.int32), ua, r, rng.random(n) < 0.9, db.view(np.int32), ub,
+              rng.random(m) < 0.8]
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,r_inf", [(4096, False), (4096 - 77, False), (4096, True),
+                                     (100, False)])
+@pytest.mark.parametrize("mutual", [True, False])
+@pytest.mark.parametrize("ratio", [1.0, 0.85])
+def test_fused_match_kernel_matches_plain(cuda_device, m, r_inf, mutual, ratio):
+    prob = _match_problem(cuda_device, 512, m, r_inf=r_inf)
+    idx, ok, dist = hc.fused_match_top2(*prob, max_dist=64, ratio=ratio, mutual=mutual)
+    idx_p, ok_p, dist_p = hc.fused_match_top2_plain(*prob, max_dist=64, ratio=ratio,
+                                                   mutual=mutual)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(idx, idx_p)
+    assert torch.equal(dist[ok_p], dist_p[ok_p])
+    if ratio == 1.0:
+        assert int(ok_p.sum()) > min(20, m // 25)
+
+
+@pytest.mark.cuda
+def test_fused_match_counts_launches_and_rejects_bad_inputs(cuda_device):
+    prob = _match_problem(cuda_device, 64, 300)
+    fc.reset_launches()
+    hc.fused_match_top2(*prob, max_dist=64)
+    hc.fused_match_top2_plain(*prob, max_dist=64)
+    assert fc.LAUNCHES["fused_match"] == 1
+    with pytest.raises(ValueError):
+        hc.fused_match_top2(prob[0].long(), *prob[1:], max_dist=64)
+    with pytest.raises(ValueError):
+        hc.fused_match_top2(prob[0], *prob[1:4], prob[4].cpu(), *prob[5:], max_dist=64)

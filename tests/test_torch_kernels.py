@@ -1,11 +1,12 @@
-"""The port's two frontend kernels: their plain PyTorch twins against the
-JAX package's golden twins and Pallas kernels (interpret mode), and the CPU
-dispatch of the wrappers.  Each kernel against its twin on a CUDA card is
-in tests/test_torch_cuda.py.
+"""The port's kernels: their plain PyTorch twins against the JAX package's
+golden twins and Pallas kernels (interpret mode), and the CPU dispatch of
+the wrappers.  Each kernel against its twin on a CUDA card is in
+tests/test_torch_cuda.py.
 
 Tolerances: ``fast_rank`` raw/rank at rtol 1e-5 / atol 1e-3 with identical
 corner support (the bar of tests/test_ops_pallas.py); ``extract_patches``
-bit-exact."""
+bit-exact; ``fused_match_top2`` indices and masks exact, matched distances
+exact."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ from boslam_tpu.features.frontend import (
 )
 from boslam_tpu.io import synthetic
 from boslam_tpu.ops.frontend_pallas import extract_patches_pallas, fast_rank_pallas
+from boslam_tpu.ops.hamming_pallas import fused_match_top2 as j_fused_match
 from boslam_tpu_torch.ops import frontend_cuda as fc
+from boslam_tpu_torch.ops import hamming_cuda as hc
 
 RTOL, ATOL = 1e-5, 1e-3
 
@@ -100,6 +103,60 @@ def test_wrappers_reject_bad_inputs():
     idx32 = idx.to(torch.int32)
     with pytest.raises(ValueError):
         fc.extract_patches(small, idx32, idx32)
+
+
+def _match_problem(rng, n=128, m=512, img=(640.0, 480.0)):
+    """The random windowed problem of tests/test_ops_pallas.py: map
+    descriptors a quarter of which are copies of frame descriptors placed
+    3 px from their keypoints."""
+    desc_a = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    desc_b = rng.integers(0, 2**32, size=(m, 8), dtype=np.uint64).astype(np.uint32)
+    idx = rng.integers(0, n, size=m // 4)
+    desc_b[: m // 4] = desc_a[idx]
+    uv_a = rng.uniform(0, img, size=(n, 2)).astype(np.float32)
+    uv_b = rng.uniform(0, img, size=(m, 2)).astype(np.float32)
+    uv_b[: m // 4] = uv_a[idx] + 3.0
+    r_a = rng.uniform(8.0, 40.0, size=(n,)).astype(np.float32)
+    return [desc_a, uv_a, r_a, rng.random(n) < 0.9, desc_b, uv_b, rng.random(m) < 0.8]
+
+
+def _match_both(prob, **kw):
+    ref = j_fused_match(*(jnp.asarray(a) for a in prob), m_tile=128,
+                        interpret=True, **kw)
+    got = hc.fused_match_top2(*(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                                 else a) for a in prob), **kw)
+    return [np.asarray(r) for r in ref], [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("mutual", [True, False])
+@pytest.mark.parametrize("ratio", [1.0, 0.9])
+def test_fused_match_twin_matches_pallas(mutual, ratio):
+    ref, got = _match_both(_match_problem(np.random.default_rng(0)),
+                           max_dist=64, ratio=ratio, mutual=mutual)
+    assert ref[1].sum() > 10
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[2][ref[1]], ref[2][ref[1]])
+
+
+def test_fused_match_twin_infinite_radius():
+    """r = inf, the relocalization call: a plain brute-force match."""
+    prob = _match_problem(np.random.default_rng(1))
+    prob[2] = np.full_like(prob[2], np.inf)
+    ref, got = _match_both(prob, max_dist=80, ratio=0.95, mutual=True)
+    assert ref[1].sum() > 10
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[0], ref[0])
+
+
+def test_fused_match_cpu_takes_the_twin_and_checks_inputs():
+    prob = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+            for a in _match_problem(np.random.default_rng(2), n=16, m=64)]
+    before = dict(fc.LAUNCHES)
+    hc.fused_match_top2(*prob, max_dist=64)
+    assert fc.LAUNCHES == before and hc.LAUNCHES is fc.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        hc.fused_match_tiles(*prob)
 
 
 def test_kernel_build_is_keyed_by_source():

@@ -133,13 +133,143 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     assert SlamSystem(cfg, device="cpu").device.type == "cpu"
 
 
-def test_a_lost_frame_raises_until_relocalization_is_ported():
-    cfg = tp.configs(tp.E2E)[1]
-    _, frames = tp.orbit_frames(cfg.camera, 1)
-    slam = SlamSystem(cfg, device="cpu")
-    slam.track = slam.track._replace(status=torch.tensor(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="relocaliz"):
-        slam.feed(*frames[0])
+# Frame 10 loses tracking before a flush has trained the vocabulary, so
+# frame 11 relocalizes against the whole map; frame 33 loses it again after
+# the second flush trained it, and frame 34 relocalizes through the BoW
+# candidates.
+KIDNAP_BLANK = (10, 33)
+
+
+@pytest.fixture(scope="module")
+def kidnap():
+    cfg_j, cfg_t = tp.configs(tp.E2E)
+    traj = synthetic.orbit_trajectory(40, radius=0.5, yaw_amplitude=0.2)
+    frames = tp.blank(synthetic.render_sequence(cfg_t.camera, traj), KIDNAP_BLANK)
+    ready = []
+    got = tp.port_engine(cfg_t, frames, ready)
+    return traj, tp.jax_engine(cfg_j, frames), got, ready
+
+
+def _reloc(slam):
+    return [(i, m["reloc_ok"]) for i, m in enumerate(slam.metrics)
+            if "reloc_ok" in m]
+
+
+def test_kidnap_run_matches_jax_engine(kidnap):
+    """Both relocalization paths: the same statuses, relocalization records
+    and keyframe frames as the JAX engine; poses within 1 cm, ATE within
+    10% + 1 mm."""
+    traj, ref, got, ready = kidnap
+    assert _reloc(ref) == [(11, True), (34, True)]
+    assert _reloc(got) == _reloc(ref)
+    assert [ready[i] for i, _ in _reloc(got)] == [False, True]  # global, BoW
+    assert [m["status"] for m in got.metrics] == [m["status"] for m in ref.metrics]
+    assert [m.get("event") for m in got.metrics] == [m.get("event") for m in ref.metrics]
+    assert _kf_frames(got) == _kf_frames(ref)
+    _, est_ref = ref.trajectory()
+    _, est = got.trajectory()
+    np.testing.assert_array_less(
+        np.linalg.norm(est[:, 4:] - est_ref[:, 4:], axis=1), POSE_ATOL_M)
+    ate_ref, ate = _ate(est_ref, traj.poses_twc), _ate(est, traj.poses_twc)
+    assert abs(ate - ate_ref) <= ATE_RTOL * ate_ref + ATE_ATOL_M, (ate, ate_ref)
+
+
+def test_loop_fields_match_jax_engine(runs):
+    """The packed rows' loop fields (candidate and BoW score per keyframe)
+    and the loop state they come from: vocabulary, BoW rows, streaks."""
+    _, ref, got = runs
+    assert [m.get("loop_candidate") for m in got.metrics] == \
+        [m.get("loop_candidate") for m in ref.metrics]
+    for m_ref, m in zip(ref.metrics, got.metrics):
+        if "loop_score" in m_ref:
+            assert m["loop_score"] == pytest.approx(m_ref["loop_score"], abs=1e-4)
+    assert bool(got.loop.vocab_ready) and bool(ref.loop.vocab_ready)
+    want = tp.np_dict(ref.loop)
+    have = convert.loop_state_to_numpy(got.loop)
+    for k in ("vocab", "streak_kf", "streak_len"):
+        np.testing.assert_array_equal(have[k], want[k], err_msg=k)
+    np.testing.assert_allclose(have["kf_bow"], want["kf_bow"], atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def closure():
+    """The JAX engine on the closed orbit of tests/test_slam_e2e.py's loop
+    test: its state when it dispatched the verification that closed a loop,
+    and its map and tracker right after the closure."""
+    from boslam_tpu.slam import SlamSystem as JaxSlam
+
+    d = dict(tp.E2E, loop=dict(min_gap_kf=8, consistency=2, min_score_matches=25),
+             tracker=dict(kf_min_interval=2, kf_tracked_ratio=0.75))
+    cfg_j, cfg_t = tp.configs(d)
+    traj = synthetic.orbit_trajectory(80, radius=1.2, yaw_amplitude=0.5, loop=True)
+    frames = synthetic.render_sequence(cfg_t.camera, traj)
+    snaps, closed = [], []
+
+    class Capture(JaxSlam):
+        def _dispatch_verify(self, loop_requests):
+            if loop_requests:
+                snaps.append(dict(
+                    map=tp.np_dict(self.map), loop=tp.np_dict(self.loop),
+                    track=tp.np_dict(self.track), key=self.key,
+                    seq_host=dict(self._kf_seq_host), loops=self.n_loops_closed,
+                    reqs=[(k, c) for k, c, _ in loop_requests]))
+            super()._dispatch_verify(loop_requests)
+
+        def _close_loop(self, kf_id, cand, *args, **kw):
+            super()._close_loop(kf_id, cand, *args, **kw)
+            closed.append(dict(snap=snaps[-1], pair=(kf_id, cand),
+                               map=tp.np_dict(self.map),
+                               track=tp.np_dict(self.track)))
+
+    slam = Capture(cfg_j)
+    for f in frames:
+        slam.feed(*f)
+    slam.trajectory()
+    assert closed, "the JAX engine closed no loop"
+    return cfg_t, closed[0]
+
+
+def test_host_loop_closure_matches_jax_engine(closure):
+    """A JAX state with consistent candidates pending, carried into the
+    port: ``_dispatch_verify`` -> ``_resolve_pending_verify`` ->
+    ``_close_loop`` closes the same loop with JAX's RANSAC noise, and the
+    corrected map and tracker agree."""
+    import jax
+
+    cfg_t, c = closure
+    snap = c["snap"]
+    slam = SlamSystem(cfg_t, device="cpu")
+    slam.map = convert.map_state_from_numpy(snap["map"], "cpu")
+    slam.loop = convert.loop_state_from_numpy(snap["loop"], "cpu")
+    slam.track = convert.track_state_from_numpy(snap["track"], "cpu")
+    slam._kf_seq_host = dict(snap["seq_host"])
+    slam.n_loops_closed = snap["loops"]
+    # The noise the JAX dispatch drew: its key split once, then per request.
+    keys = jax.random.split(jax.random.split(snap["key"])[1], slam.MAX_VERIFY)
+    shape = (cfg_t.tracker.ransac_iters, cfg_t.orb.n_features)
+    slam.generator = torch.from_numpy(
+        np.stack([np.array(jax.random.gumbel(k, shape)) for k in keys]))
+    recs = [{} for _ in snap["reqs"]]
+    slam._dispatch_verify([(k, c_, r) for (k, c_), r in zip(snap["reqs"], recs)])
+    slam._resolve_pending_verify()
+    assert slam.n_loops_closed == snap["loops"] + 1
+    closed = [pair for pair, r in zip(snap["reqs"], recs) if r.get("event") == "loop_closed"]
+    assert closed == [c["pair"]]
+    got_map = convert.map_state_to_numpy(slam.map)
+    for k in ("kf_obs_pt", "pt_valid", "covis", "loop_edges", "n_loop_edges"):
+        np.testing.assert_array_equal(got_map[k], c["map"][k], err_msg=k)
+    for k in ("kf_pose", "pt_xyz", "loop_rel"):
+        np.testing.assert_allclose(got_map[k], c["map"][k], atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(slam.track.pose_cw.numpy(), c["track"]["pose_cw"], atol=1e-4)
+
+
+def test_global_ba_is_not_ported_yet():
+    cfg = tp.configs(dict(tp.E2E, loop=dict(run_global_ba=True)))[1]
+    with pytest.raises(NotImplementedError, match="global bundle adjustment"):
+        SlamSystem(cfg, device="cpu")
+    slam = SlamSystem(tp.configs(tp.E2E)[1], device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        slam.run_global_ba()
 
 
 def _jax_state(kind):

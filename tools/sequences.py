@@ -12,10 +12,21 @@ other.
 * ``hall``: the bench's tracking run (``bench.py``: ``_tracking_cfg`` and
   its ``RenderFeed``) — the 450-frame 3-petal clover in a hall-sized room
   (room scale 2.5), a wide-FOV VGA camera, 2.5% depth noise, depth on the
-  wire at stride 2.  Run with loops off, it is ROADMAP A5's bar.
+  wire at stride 2.  Run with loops off, it is ROADMAP A5's bar; with
+  loops on, A6's.
+* ``kidnap``: the ``orbit`` with ``map.max_points = 65536`` (the capacity
+  ``bench.py`` gives its engine-built map) and frames 8, 9, 70 and 71
+  blanked (gray 0, depth 0).  The first gap loses tracking before the first
+  flush can train the vocabulary, so relocalization takes the whole-map
+  path through kernel B3; the second relocalizes through BoW.
+* ``loop``: the first 320 frames of ``hall``.  With loops on, the JAX
+  reference closes one loop there (at the keyframe of frame 291, verified
+  one flush late).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 SEQUENCES = {
     "orbit": dict(
@@ -36,7 +47,29 @@ SEQUENCES = {
                          yaw_amplitude=0.4)),
         render=dict(depth_noise=0.025, seed=3, room_scale=2.5),
     ),
+    "kidnap": dict(
+        cfg=dict(map=dict(max_points=65536)),
+        trajectory=("orbit_trajectory",
+                    dict(n_frames=120, radius=0.6, yaw_amplitude=0.3)),
+        render=dict(depth_noise=0.01, seed=0),
+        blank=(8, 9, 70, 71),
+    ),
 }
+# The closed orbit of tests/test_slam_e2e.py's loop test at full width
+# closes no loop in the JAX reference, in one lap or two (its consistent
+# candidates stay under the 77-inlier gate of 512 features), so ``loop`` is
+# the hall clover cut after its first closure.
+SEQUENCES["loop"] = dict(SEQUENCES["hall"], frames=320)
+
+
+def blank_frames(frames, indices):
+    """Frames ``indices`` replaced by a black image with no depth."""
+    out = list(frames)
+    for i in indices:
+        if i < len(out):
+            ts, rgb, depth = out[i]
+            out[i] = (ts, np.zeros_like(rgb), np.zeros_like(depth))
+    return out
 
 
 def build(name: str, config_cls, synthetic, n_frames: int | None = None):
@@ -46,8 +79,9 @@ def build(name: str, config_cls, synthetic, n_frames: int | None = None):
     cfg = config_cls.from_dict(seq["cfg"])
     fn, kw = seq["trajectory"]
     traj = getattr(synthetic, fn)(**kw)
+    n_frames = seq.get("frames") if n_frames is None else n_frames
     if n_frames is not None:
         traj.poses_twc = traj.poses_twc[:n_frames]
         traj.timestamps = traj.timestamps[:n_frames]
     frames = synthetic.render_sequence(cfg.camera, traj, **seq["render"])
-    return cfg, traj, frames
+    return cfg, traj, blank_frames(frames, seq.get("blank", ()))

@@ -1,8 +1,9 @@
 """Where a frame's time goes in the PyTorch port, on the CUDA card.
 
-Drives ``SlamSystem`` over the first frames of the ``orbit`` sequence of
-``tools/sequences.py`` (the one ``chip_smoke.py`` runs: full-width
-``SlamConfig()``, 120-frame orbit, 1% depth noise) and measures two ways:
+Drives ``SlamSystem`` over the first frames of a sequence of
+``tools/sequences.py`` (by default ``orbit``, the one of ``chip_smoke.py``
+phase 3: full-width ``SlamConfig()``, 120-frame orbit, 1% depth noise) and
+measures two ways:
 
 1. stage wall times: each stage of ``frame_step_core`` (frontend, tracking,
    the keyframe event's map ops, local BA) is wrapped in a host clock that
@@ -13,7 +14,8 @@ Drives ``SlamSystem`` over the first frames of the ``orbit`` sequence of
    one stream, copies included), the device's idle share, device
    operations per frame and those that take the most device time.
 
-    python tools/torch_profile.py [--frames 40] [--warmup 10] [--out DIR]
+    python tools/torch_profile.py [--sequence orbit] [--frames 40]
+        [--warmup 10] [--out DIR]
 
 Prints one JSON line; the kernel table goes to ``DIR/torch_profile.txt``.
 """
@@ -146,7 +148,8 @@ def profile_window(cfg, frames, warmup, top):
     summary["own_kernels"] = {
         name: {"launches_per_frame": cnt / n, "device_ms_per_frame": us / 1e3 / n}
         for name, (cnt, us) in rows
-        if "fast_rank_kernel" in name or "extract_patches_kernel" in name
+        if any(k in name for k in ("fast_rank_kernel", "extract_patches_kernel",
+                                   "match_tiles_kernel", "merge_tiles_kernel"))
     }
     table = [f"{'kernel':90s} {'launches/frame':>14s} {'ms/frame':>10s}"]
     for name, (cnt, us) in rows[:top]:
@@ -156,6 +159,8 @@ def profile_window(cfg, frames, warmup, top):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--sequence", choices=sorted(sequences.SEQUENCES),
+                    default="orbit")
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
@@ -171,7 +176,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fc.build_kernels()
-    cfg, _, frames = sequences.build("orbit", SlamConfig, synthetic, args.frames)
+    cfg, _, frames = sequences.build(args.sequence, SlamConfig, synthetic,
+                                     args.frames)
 
     stages, frame_ms = stage_times(cfg, frames, args.warmup)
     n = len(frame_ms)

@@ -2,15 +2,17 @@
 the CUDA card and print its accuracy and speed.
 
 The JAX reference on the same frames comes from
-``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --sequence NAME``.
+``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --sequence NAME``
+(with ``--loops`` when this run has it).
 
-    python tools/torch_sequence.py [--sequence orbit|hall] [--frames N]
-        [--warmup 10]
+    python tools/torch_sequence.py [--sequence orbit|hall|kidnap|loop]
+        [--loops] [--seed S] [--frames N] [--warmup 10]
 
-Prints one JSON line: ATE (m), fps after the warm-up frames, keyframes,
-points, lost frames, keyframe-event frame indices, host syncs per frame and
-the card.  A frame that starts LOST stops the run (relocalization is not
-ported yet): the line then names that frame and the exit code is 1.
+Without ``--loops`` the engine verifies no loop (``MAX_VERIFY = 0``), as the
+reference tool does.  Prints one JSON line: ATE (m), fps after the warm-up
+frames, keyframes, points, lost frames, keyframe-event frame indices, the
+relocalization attempts and successes, the loops closed, host syncs per
+frame and the card.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=None,
                     help="keep the first N frames of the sequence")
     ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--loops", action="store_true",
+                    help="verify and close loops (MAX_VERIFY stays 4)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the engine's seed (its RANSAC draws)")
     args = ap.parse_args()
 
     from boslam_tpu_torch.config import SlamConfig
@@ -48,22 +54,20 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg, traj, frames = sequences.build(args.sequence, SlamConfig, synthetic,
                                         args.frames)
-    slam = SlamSystem(cfg)
-    out = {"sequence": args.sequence, "frames": len(frames),
-           "card": torch.cuda.get_device_name(0)}
+    slam = SlamSystem(cfg, seed=args.seed)
+    if not args.loops:
+        slam.MAX_VERIFY = 0
+    out = {"sequence": args.sequence, "loops": args.loops,
+           "frames": len(frames), "card": torch.cuda.get_device_name(0)}
     t_warm = None
-    try:
-        for i, (ts, rgb, depth) in enumerate(frames):
-            if i == args.warmup:
-                slam.flush()
-                torch.cuda.synchronize()
-                t_warm = time.perf_counter()
-            slam.feed(ts, rgb, depth)
-        slam.flush()
-    except NotImplementedError:
-        out["lost_at_frame"] = i
-        print(json.dumps(out), flush=True)
-        sys.exit(1)
+    for i, (ts, rgb, depth) in enumerate(frames):
+        if i == args.warmup:
+            # No flush here: the host events (vocabulary training, loop
+            # verification) must run on the reference's chunk schedule.
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        slam.feed(ts, rgb, depth)
+    slam.flush()
     torch.cuda.synchronize()
     if t_warm is not None:
         out["fps_after_warmup"] = (len(frames) - args.warmup) / (
@@ -78,6 +82,15 @@ def main() -> None:
         lost=sum(1 for m in slam.metrics if m.get("lost", False)),
         kf_event_frames=[i for i, m in enumerate(slam.metrics)
                          if m.get("event") in ("init", "keyframe")],
+        reloc_frames=[i for i, m in enumerate(slam.metrics) if "reloc_ok" in m],
+        reloc_ok_frames=[i for i, m in enumerate(slam.metrics)
+                         if m.get("reloc_ok")],
+        n_loops_closed=slam.n_loops_closed,
+        loop_closed_frames=[i for i, m in enumerate(slam.metrics)
+                            if m.get("event") == "loop_closed"],
+        loop_verified=[(i, m["loop_candidate"], m["loop_inliers"])
+                       for i, m in enumerate(slam.metrics)
+                       if "loop_inliers" in m],
         host_syncs_per_frame=slam.sync.count / len(frames),
     )
     print(json.dumps(out), flush=True)
