@@ -10,8 +10,11 @@ Everything is static-shape: exactly ``cfg.orb.n_features`` keypoint slots per
 frame, invalid slots masked.  Descriptor words are int32 tensors holding the
 uint32 bits of the reference.
 
-The two stencil/gather stages run as hand-written CUDA kernels on a CUDA
-tensor and as their plain twins on a CPU tensor (``ops.frontend_cuda``).
+Two stages run as hand-written CUDA kernels on a CUDA tensor, one launch
+per frame each, and as their plain twins on a CPU tensor
+(``ops.frontend_cuda``): FAST + NMS + rank fusion over the whole pyramid,
+and patch gather + orientation + rotated BRIEF over all keypoints
+(``orient_and_brief`` below is that kernel's plain version).
 """
 
 from __future__ import annotations
@@ -265,19 +268,22 @@ def extract_features_from_levels(levels, depth, cfg: SlamConfig) -> FrameFeature
     kernel = _frontend_constants(depth.device)[0]
     t_hi, t_lo = float(orb.fast_threshold), float(orb.fast_threshold_min)
 
-    uv_all, patch_all, oct_all, resp_all, val_all = [], [], [], [], []
+    # One launch for the whole pyramid.  Adaptive FAST threshold: hi + lo
+    # scores in one pass; hi corners outrank lo ones so lo corners only fill
+    # weak cells.
+    maps = frontend_cuda.fast_rank_levels(levels[:orb.n_levels], t_hi, t_lo,
+                                          _BOOST_HI, _LEVEL_BORDER)
+
+    uv_all, oct_all, resp_all, val_all = [], [], [], []
+    blurred_all, ys_all, xs_all = [], [], []
     for l, (hl, wl) in enumerate(shapes):
-        level = levels[l]
-        blurred = _blur(level, kernel)
-        # Adaptive FAST threshold: hi + lo scores in one pass; hi corners
-        # outrank lo ones so lo corners only fill weak cells.
-        rank, raw_score = frontend_cuda.fast_rank(
-            level, t_hi, t_lo, _BOOST_HI, _LEVEL_BORDER
-        )
+        rank, raw_score = maps[l]
         k = budgets[l]
         ys, xs, top = _grid_select(rank, k, orb.grid_rows, orb.grid_cols)
         valid = top > 0
-        patches = frontend_cuda.extract_patches(blurred, ys, xs)
+        blurred_all.append(_blur(levels[l], kernel))
+        ys_all.append(ys)
+        xs_all.append(xs)
         dxs, dys = _subpixel_offsets(raw_score, ys, xs)
         xf = xs.float() + dxs
         yf = ys.float() + dys
@@ -286,14 +292,14 @@ def extract_features_from_levels(levels, depth, cfg: SlamConfig) -> FrameFeature
         sx, sy = w / wl, h / hl
         uv_all.append(torch.stack([(xf + 0.5) * sx - 0.5,
                                    (yf + 0.5) * sy - 0.5], -1))
-        patch_all.append(patches)
         oct_all.append(torch.full((k,), l, dtype=torch.int32,
                                   device=depth.device))
         resp_all.append(raw_score[torch.clamp(ys.long(), 0, hl - 1),
                                   torch.clamp(xs.long(), 0, wl - 1)])
         val_all.append(valid)
 
-    angle, desc = orient_and_brief(torch.cat(patch_all))
+    # One launch for the frame's keypoints: gather, orientation and BRIEF.
+    angle, desc = frontend_cuda.describe_patches(blurred_all, ys_all, xs_all)
 
     uv = torch.cat(uv_all)
     valid = torch.cat(val_all)

@@ -6,6 +6,8 @@ shared library per source with a plain C interface, and bound with
 ``ctypes``.  A library's name carries a hash of its source and flags, so a
 stale build is never loaded.  ``LAUNCHES`` counts kernel launches by name;
 each wrapper adds one where it launches its kernel, and nowhere else.
+``launch_floor`` is no kernel of the port: an empty kernel built the same
+way, for measuring what one launch costs on the card.
 """
 
 from __future__ import annotations
@@ -23,17 +25,22 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "boslam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# Kernel name -> (source file, C entry point, ctypes argtypes).
+# Kernel name -> (source file, C entry point, ctypes argtypes).  The two
+# frontend entries take a pointer to a host-side level table first
+# (``ops.frontend_cuda``), which the entry copies into the launch.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "fast_rank": ("fast_rank.cu", "boslam_fast_rank",
-                  [_P, _P, _P, _I, _I, _F, _F, _F, _I, _P]),
-    "extract_patches": ("extract_patches.cu", "boslam_extract_patches",
-                        [_P, _P, _P, _P, _I, _I, _I, _P]),
+                  [_P, _F, _F, _F, _I, _P]),
+    "extract_patches": ("describe_patches.cu", "boslam_describe_patches",
+                        [_P, _P, _P, _P, _P, _P]),
     "fused_match": ("fused_match.cu", "boslam_fused_match",
                     [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                      _P]),
 }
+
+_SOURCES = dict(KERNELS, launch_floor=("launch_floor.cu", "boslam_launch_floor",
+                                       [_P]))
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _LIBS: dict = {}
@@ -54,7 +61,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = _CSRC / KERNELS[name][0]
+    src = _CSRC / _SOURCES[name][0]
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
@@ -62,10 +69,11 @@ def _lib_path(name: str) -> Path:
 
 
 def build_kernels(names=None, verbose: bool = False) -> dict:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together.  Returns {name: .so path}.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    names = list(KERNELS) if names is None else list(names)
+    """Compile the named sources (default: every kernel and the empty
+    ``launch_floor``) that are not built yet, one ``nvcc`` per source, all
+    started together.  Returns {name: .so path}.  ``verbose`` adds
+    ``-Xptxas -v`` and prints the compiler's report."""
+    names = list(_SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -74,7 +82,7 @@ def build_kernels(names=None, verbose: bool = False) -> dict:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(_CSRC / KERNELS[name][0])]
+               "-o", str(tmp), str(_CSRC / _SOURCES[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -98,8 +106,8 @@ def kernel_fn(name: str):
         if name not in _LIBS:
             path = build_kernels([name])[name]
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
+            fn = getattr(lib, _SOURCES[name][1])
+            fn.argtypes = _SOURCES[name][2]
             fn.restype = ctypes.c_int
             _LIBS[name] = (lib, fn)
         return _LIBS[name][1]

@@ -6,12 +6,16 @@ Phases, each fatal on failure:
   1. card and build: the card's name and power limit, then ``nvcc`` builds
      of every kernel of the main path from ``boslam_tpu_torch/csrc``;
   2. kernels against their plain PyTorch versions on the card, at the 8
-     pyramid levels of a 640x480 frame (and a ragged height), with device
-     times (CUDA-graph replay, CUDA events) of kernel, plain version and
-     library call, the eager per-call time, and the roofline bound;
+     pyramid levels of a 640x480 frame (and a ragged height), level by level
+     and as the main path calls them, all levels in one launch; with device
+     times (CUDA-graph replay, CUDA events) of kernel, plain version,
+     library call, the per-level way of calling and the tensor code the
+     fused kernel replaces, the time of an empty kernel's launch, the eager
+     per-call time, and the roofline bound;
   3. end to end: ``run_sequence`` over a 120-frame full-width synthetic orbit
-     on the card, every kernel launch counted, ATE against groundtruth held
-     to the JAX reference's ATE on the same sequence;
+     on the card, every kernel launch counted (one per frame for each
+     frontend kernel), ATE against groundtruth held to the JAX reference's
+     ATE on the same sequence;
   4. the streaming Hamming matcher (kernel B3) against its plain version at
      relocalization's shapes (512 frame rows against 65536 map points, no
      window; a random windowed problem; a ragged map), with its device,
@@ -125,6 +129,146 @@ def device_ms(fn, iters: int = 20) -> float:
             fn()
     graph.replay()
     return _median_event_ms(graph.replay, iters)
+
+
+def check_frontend(dev, cfg):
+    """Phase 2: kernels B1 and B2 against their plain versions, level by
+    level and all levels in one launch; times and bounds.  Returns the two
+    kernels' records."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.features import frontend
+    from boslam_tpu_torch.io import synthetic
+    from boslam_tpu_torch.ops import frontend_cuda as fc
+    from boslam_tpu_torch.slam import to_gray_u8
+
+    orb, cam = cfg.orb, cfg.camera
+    rgb, _ = synthetic.render_frame(
+        cam, np.array([1.0, 0, 0, 0, 0.1, -0.1, 0.2]))
+    gray = torch.from_numpy(to_gray_u8(rgb)).to(dev).float()
+    levels = frontend.build_pyramid(gray, cfg)
+    budgets = frontend.distribute_features(orb.n_features, orb.n_levels,
+                                           orb.scale_factor)
+    t_hi, t_lo = float(orb.fast_threshold), float(orb.fast_threshold_min)
+    args = (t_hi, t_lo, frontend._BOOST_HI, frontend._LEVEL_BORDER)
+    kern = frontend._frontend_constants(dev)[0]
+
+    fast = dict(err=0.0, per_level=0.0, plain=0.0, bytes=0.0, ops=0.0, corners=0)
+    patch = dict(err=0.0, per_level=0.0, lib=0.0, bytes=0.0)
+    plain_maps, blurred_all, ys_all, xs_all, index_all = [], [], [], [], []
+    cases = [(f"L{l}", lvl) for l, lvl in enumerate(levels)]
+    cases.append(("L0-ragged", levels[0][:477].contiguous()))
+    for name, lvl in cases:
+        h, w = lvl.shape
+        rank, raw = fc.fast_rank(lvl, *args)
+        rank_p, raw_p = fc.fast_rank_plain(lvl, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(rank > 0, rank_p > 0):
+            fail(f"fast_rank {name}: rank support differs")
+        for a, b, what in ((raw, raw_p, "raw"), (rank, rank_p, "rank")):
+            if not torch.allclose(a, b, rtol=FAST_RTOL, atol=FAST_ATOL):
+                fail(f"fast_rank {name}: {what} differs, max "
+                     f"{float((a - b).abs().max())}")
+            if not torch.equal(a, b):
+                fail(f"fast_rank {name}: {what} is not bit-identical")
+            fast["err"] = max(fast["err"], float((a - b).abs().max()))
+        if name.endswith("ragged"):
+            print(f"[fast_rank] {name} {h}x{w} ok", flush=True)
+            continue
+        k = budgets[int(name[1:])]
+        ys, xs, _ = frontend._grid_select(rank_p, k, orb.grid_rows, orb.grid_cols)
+        blurred = frontend._blur(lvl, kern)
+        pk = fc.extract_patches(blurred, ys, xs)
+        pp = fc.extract_patches_plain(blurred, ys, xs)
+        torch.cuda.synchronize()
+        if not torch.equal(pk, pp):
+            fail(f"extract_patches {name}: not bit-exact")
+        patch["err"] = max(patch["err"], float((pk - pp).abs().max()))
+        rows, cols = fc.patch_index(h, w, ys, xs)
+        plain_maps.append((rank_p, raw_p))
+        blurred_all.append(blurred)
+        ys_all.append(ys)
+        xs_all.append(xs)
+        index_all.append((rows, cols))
+
+        f_ms = device_ms(lambda: fc.fast_rank(lvl, *args))
+        f_plain = device_ms(lambda: fc.fast_rank_plain(lvl, *args), iters=5)
+        p_ms = device_ms(lambda: fc.extract_patches(blurred, ys, xs))
+        p_lib = device_ms(lambda: blurred[rows, cols])
+        fast["per_level"] += f_ms
+        fast["plain"] += f_plain
+        # One read of the level, one write of rank and raw.  Operations, as
+        # this frame's data needs them: per score pixel (level + NMS ring)
+        # 16 offsets x (1 sub + 2 compares) decide whether it is a corner at
+        # the lower threshold; only a corner needs the rest, 16 x (4 x (sub,
+        # max, add) + 2 compares) and 2 x 9 NMS maxima.
+        n_corner = int((raw_p > 0).sum())
+        fast["corners"] += n_corner
+        fast["bytes"] += 12.0 * h * w
+        fast["ops"] += 16 * 3.0 * (h + 2) * (w + 2) + (16 * 14.0 + 18.0) * n_corner
+        patch["per_level"] += p_ms
+        patch["lib"] += p_lib
+        # The fused function, per keypoint: the 4 KB window and the
+        # coordinates read; angle and 8 words written.
+        patch["bytes"] += k * (4 * fc.PATCH * fc.PATCH + 8 + 36)
+        print(f"[kernels] {name} {h}x{w} K={k}: one-level launches, device "
+              f"ms: fast_rank {f_ms:.4f} (plain {f_plain:.4f}), "
+              f"extract_patches with its patch output {p_ms:.4f} (gather "
+              f"{p_lib:.4f})", flush=True)
+
+    # The [32, 512] uint16 pattern table is read from device memory once.
+    patch["bytes"] += fc.brief_table_np().nbytes
+
+    # The main path's calls: every level in one launch.
+    maps = fc.fast_rank_levels(levels, *args)
+    torch.cuda.synchronize()
+    for l, ((rank, raw), (rank_p, raw_p)) in enumerate(zip(maps, plain_maps)):
+        if not (torch.equal(rank, rank_p) and torch.equal(raw, raw_p)):
+            fail(f"fast_rank_levels: level {l} is not bit-identical to the "
+                 f"plain version")
+        if rank.data_ptr() % 16 or raw.data_ptr() % 16:
+            fail(f"fast_rank_levels: level {l}'s views are not 16-byte aligned")
+    angle, desc = fc.describe_patches(blurred_all, ys_all, xs_all)
+    torch.cuda.synchronize()
+    report = fc.describe_report(blurred_all, ys_all, xs_all, angle, desc)
+    print(f"[describe_patches] {json.dumps(report)}", flush=True)
+    if report["violations"]:
+        fail(f"describe_patches: {report['violations']}")
+    patch["err"] = max(patch["err"], report["max_angle_err"])
+
+    def chain():
+        return frontend.orient_and_brief(torch.cat(
+            [b[r, c] for b, (r, c) in zip(blurred_all, index_all)]))
+
+    floor_fn = fc.kernel_fn("launch_floor")
+    floor = device_ms(
+        lambda: floor_fn(torch.cuda.current_stream().cuda_stream))
+    fast["ms"] = device_ms(lambda: fc.fast_rank_levels(levels, *args))
+    patch["ms"] = device_ms(
+        lambda: fc.describe_patches(blurred_all, ys_all, xs_all))
+    patch["plain"] = device_ms(
+        lambda: fc.describe_patches_plain(blurred_all, ys_all, xs_all), iters=5)
+    patch["chain"] = device_ms(chain, iters=5)
+    f_call = call_ms(lambda: fc.fast_rank_levels(levels, *args))
+    p_call = call_ms(lambda: fc.describe_patches(blurred_all, ys_all, xs_all))
+    print(f"[kernels] launch_floor_ms {floor:.5f} (an empty kernel built and "
+          f"launched the same way, CUDA-graph replay)", flush=True)
+    print(f"[kernels] fast_rank, 8 levels in one launch: device ms "
+          f"{fast['ms']:.4f} (one launch per level: {fast['per_level']:.4f}; "
+          f"plain {fast['plain']:.4f}); eager ms per call {f_call:.4f}; "
+          f"{fast['corners']} of {sum(l.numel() for l in levels)} pixels are "
+          f"corners at the lower threshold", flush=True)
+    print(f"[kernels] extract_patches, gather + orientation + BRIEF of "
+          f"{report['keypoints']} keypoints in one launch: device ms "
+          f"{patch['ms']:.4f} (plain {patch['plain']:.4f}; the tensor code it "
+          f"replaces, 8 gathers + cat + orient_and_brief: {patch['chain']:.4f}; "
+          f"patches only, one launch per level: {patch['per_level']:.4f}, "
+          f"gather: {patch['lib']:.4f}); eager ms per call {p_call:.4f}",
+          flush=True)
+    print(f"[kernels] all levels match; comparison launches "
+          f"{dict(fc.LAUNCHES)}", flush=True)
+    return fast, patch
 
 
 def match_problem(dev, n, m, r_inf, seed=0):
@@ -300,9 +444,9 @@ def run_events(name, fc):
     if not ate <= bound:
         fail(f"{name}: ATE {ate:.5f} m above the bound {bound:.5f} m")
     for k in fc.FRONTEND_KERNELS:
-        if launches[k] != cfg.orb.n_levels * len(frames):
-            fail(f"{name}: {k}: {launches[k]} launches, expected "
-                 f"{cfg.orb.n_levels * len(frames)}")
+        if launches[k] != len(frames):
+            fail(f"{name}: {k}: {launches[k]} launches, expected one per "
+                 f"frame, {len(frames)}")
     if launches["fused_match"] != n_global:
         fail(f"{name}: fused_match launched {launches['fused_match']} times "
              f"for {n_global} whole-map relocalization attempts")
@@ -318,11 +462,10 @@ def main() -> None:
     import numpy as np
 
     from boslam_tpu_torch.config import SlamConfig
-    from boslam_tpu_torch.features import frontend
     from boslam_tpu_torch.geometry import align
     from boslam_tpu_torch.io import synthetic
     from boslam_tpu_torch.ops import frontend_cuda as fc
-    from boslam_tpu_torch.slam import run_sequence, to_gray_u8
+    from boslam_tpu_torch.slam import run_sequence
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -338,78 +481,13 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     fc.build_kernels(verbose=True)
-    print(f"[build] {len(fc.KERNELS)} kernels in "
+    print(f"[build] {len(fc.KERNELS)} kernels and the empty launch_floor in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 2. kernels against their plain versions --------------------------
     cfg = SlamConfig()
     orb, cam = cfg.orb, cfg.camera
-    rgb, _ = synthetic.render_frame(
-        cam, np.array([1.0, 0, 0, 0, 0.1, -0.1, 0.2]))
-    gray = torch.from_numpy(to_gray_u8(rgb)).to(dev).float()
-    levels = frontend.build_pyramid(gray, cfg)
-    budgets = frontend.distribute_features(orb.n_features, orb.n_levels,
-                                           orb.scale_factor)
-    t_hi, t_lo = float(orb.fast_threshold), float(orb.fast_threshold_min)
-    args = (t_hi, t_lo, frontend._BOOST_HI, frontend._LEVEL_BORDER)
-    kern = frontend._frontend_constants(dev)[0]
-
-    fast = dict(err=0.0, ms=0.0, plain=0.0, bytes=0.0, ops=0.0)
-    patch = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0.0)
-    cases = [(f"L{l}", lvl) for l, lvl in enumerate(levels)]
-    cases.append(("L0-ragged", levels[0][:477].contiguous()))
-    for name, lvl in cases:
-        h, w = lvl.shape
-        rank, raw = fc.fast_rank(lvl, *args)
-        rank_p, raw_p = fc.fast_rank_plain(lvl, *args)
-        torch.cuda.synchronize()
-        if not torch.equal(rank > 0, rank_p > 0):
-            fail(f"fast_rank {name}: rank support differs")
-        for a, b, what in ((raw, raw_p, "raw"), (rank, rank_p, "rank")):
-            if not torch.allclose(a, b, rtol=FAST_RTOL, atol=FAST_ATOL):
-                fail(f"fast_rank {name}: {what} differs, max "
-                     f"{float((a - b).abs().max())}")
-            fast["err"] = max(fast["err"], float((a - b).abs().max()))
-        if name.endswith("ragged"):
-            print(f"[fast_rank] {name} {h}x{w} ok", flush=True)
-            continue
-        k = budgets[int(name[1:])]
-        ys, xs, _ = frontend._grid_select(rank, k, orb.grid_rows, orb.grid_cols)
-        blurred = frontend._blur(lvl, kern)
-        pk = fc.extract_patches(blurred, ys, xs)
-        pp = fc.extract_patches_plain(blurred, ys, xs)
-        torch.cuda.synchronize()
-        if not torch.equal(pk, pp):
-            fail(f"extract_patches {name}: not bit-exact")
-        patch["err"] = max(patch["err"], float((pk - pp).abs().max()))
-        rows, cols = fc.patch_index(h, w, ys, xs)
-
-        f_call = call_ms(lambda: fc.fast_rank(lvl, *args))
-        p_call = call_ms(lambda: fc.extract_patches(blurred, ys, xs))
-        f_ms = device_ms(lambda: fc.fast_rank(lvl, *args))
-        f_plain = device_ms(lambda: fc.fast_rank_plain(lvl, *args), iters=5)
-        p_ms = device_ms(lambda: fc.extract_patches(blurred, ys, xs))
-        p_plain = device_ms(lambda: fc.extract_patches_plain(blurred, ys, xs))
-        p_lib = device_ms(lambda: blurred[rows, cols])
-        fast["ms"] += f_ms
-        fast["plain"] += f_plain
-        # One read of the level, one write of rank and raw; per score pixel
-        # (tile + NMS ring) 16 offsets x (1 sub + 4 x (sub, max, add) +
-        # 4 compares) f32 ops, then 2 x 9 NMS maxima per output pixel.
-        fast["bytes"] += 12.0 * h * w
-        fast["ops"] += 16 * 17.0 * (h + 2) * (w + 2) + 18.0 * h * w
-        patch["ms"] += p_ms
-        patch["plain"] += p_plain
-        patch["lib"] += p_lib
-        patch["bytes"] += k * (2 * 4 * fc.PATCH * fc.PATCH + 8)
-        print(f"[kernels] {name} {h}x{w} K={k}: device ms: fast_rank {f_ms:.4f} "
-              f"(plain {f_plain:.4f}), extract_patches {p_ms:.4f} (plain "
-              f"{p_plain:.4f}, gather {p_lib:.4f}); eager ms per call: "
-              f"fast_rank {f_call:.4f}, extract_patches {p_call:.4f}",
-              flush=True)
-    launches_check = dict(fc.LAUNCHES)
-    print(f"[kernels] all levels match; comparison launches {launches_check}",
-          flush=True)
+    fast, patch = check_frontend(dev, cfg)
 
     # ---- 3. end to end -----------------------------------------------------
     traj = synthetic.orbit_trajectory(N_FRAMES, radius=0.6, yaw_amplitude=0.3)
@@ -465,9 +543,9 @@ def main() -> None:
     if n_lost:
         fail(f"{n_lost} lost frames")
     for name in fc.FRONTEND_KERNELS:
-        if launches[name] != orb.n_levels * N_FRAMES:
-            fail(f"{name}: {launches[name]} launches, expected "
-                 f"{orb.n_levels * N_FRAMES}")
+        if launches[name] != N_FRAMES:
+            fail(f"{name}: {launches[name]} launches, expected one per "
+                 f"frame, {N_FRAMES}")
     bound = ATE_FACTOR * JAX_REFERENCE_ATE_M + ATE_SLACK_M
     if not ate <= bound:
         fail(f"ATE {ate:.5f} m above the bound {bound:.5f} m")
@@ -498,7 +576,7 @@ def main() -> None:
          "ms": fast["ms"], "plain_ms": fast["plain"], "bound_ms": f_bound,
          "bound_by": f_by, "library_ms": None},
         {"name": "extract_patches", "route": "cuda",
-         "source": "boslam_tpu_torch/csrc/extract_patches.cu",
+         "source": "boslam_tpu_torch/csrc/describe_patches.cu",
          "replaces": "boslam_tpu/ops/frontend_pallas.py:195",
          "launches": launches["extract_patches"], "max_abs_err": patch["err"],
          "ms": patch["ms"], "plain_ms": patch["plain"], "bound_ms": p_bound,
@@ -511,11 +589,15 @@ def main() -> None:
          "bound_ms": match["bound"], "bound_by": match["bound_by"],
          "library_ms": None},
     ]
-    print("[note] fast_rank and extract_patches: ms, plain_ms, library_ms and "
-          "bound_ms are sums over the 8 levels of one 640x480 frame, launches "
-          "from phase 3; fused_match: one call at 512 x 65536 without a "
-          "window, launches from phase 5; ms, plain_ms and library_ms are "
-          "device times from CUDA-graph replay", flush=True)
+    print("[note] fast_rank: one launch over the 8 levels of one 640x480 "
+          "frame (plain_ms: the plain version level by level); "
+          "extract_patches: gather + orientation + BRIEF of the frame's 512 "
+          "keypoints in one launch (plain_ms: extract_patches_plain -> "
+          "orient_and_brief; library_ms: the 8 advanced-indexing gathers, "
+          "patches only); launches from phase 3; fused_match: one call at "
+          "512 x 65536 without a window, launches from phase 5; ms, plain_ms "
+          "and library_ms are device times from CUDA-graph replay",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,19 @@ alone; the tests' conftest imports JAX, so there run it as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: ``fast_rank`` raw/rank at rtol 1e-5 / atol 1e-3 with identical
-corner support; ``extract_patches`` bit-exact; ``fused_match_top2`` indices,
-masks and matched distances exact."""
+corner support, and bit-identical; ``extract_patches`` bit-exact;
+``describe_patches`` under ``frontend_cuda.describe_report``'s contract (angle
+within 1e-4, descriptors exact wherever the angle bin agrees, bins differing
+only at a bin edge or at ill-conditioned moments: the moments' summation
+order differs); ``fused_match_top2`` indices, masks and matched distances
+exact."""
 
 import numpy as np
 import pytest
 import torch
 
-from boslam_tpu_torch.config import CameraConfig
+from boslam_tpu_torch.config import CameraConfig, SlamConfig
+from boslam_tpu_torch.features import frontend
 from boslam_tpu_torch.features.frontend import _BOOST_HI, _LEVEL_BORDER
 from boslam_tpu_torch.io import synthetic
 from boslam_tpu_torch.ops import frontend_cuda as fc
@@ -51,6 +56,79 @@ def test_fast_rank_kernel_matches_plain(cuda_device, rows):
     torch.testing.assert_close(rank, rank_p, rtol=RTOL, atol=ATOL)
 
 
+def _pyramid(device, ragged):
+    """8 full-width levels (640x480 ... 179x134), or 3 with odd shapes."""
+    if ragged:
+        g = _gray(device)
+        return [g[:233, :317].contiguous(), g[:97, :131].contiguous(),
+                g[:64, :70].contiguous()]
+    cfg = SlamConfig()
+    rgb, _ = synthetic.render_frame(
+        cfg.camera, np.array([1.0, 0, 0, 0, 0.1, -0.1, 0.2]))
+    gray = torch.from_numpy(to_gray_u8(rgb)).float().to(device)
+    return frontend.build_pyramid(gray, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+def test_fast_rank_levels_is_bit_equal_to_plain(cuda_device, ragged):
+    levels = _pyramid(cuda_device, ragged)
+    fc.reset_launches()
+    maps = fc.fast_rank_levels(levels, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["fast_rank"] == 1 and len(maps) == len(levels)
+    for lvl, (rank, raw) in zip(levels, maps):
+        rank_p, raw_p = fc.fast_rank_plain(lvl, 20.0, 7.0, _BOOST_HI,
+                                           _LEVEL_BORDER)
+        assert rank.shape == lvl.shape and rank.data_ptr() % 16 == 0
+        assert torch.equal(rank, rank_p) and torch.equal(raw, raw_p)
+    assert int((maps[0][0] > 0).sum()) > 10
+
+
+def _keypoints(device, levels, k, seed=0):
+    """Random keypoints per level, the four image corners among them."""
+    rng = np.random.default_rng(seed)
+    ys, xs = [], []
+    for lvl in levels:
+        h, w = lvl.shape
+        y = np.concatenate([rng.integers(-5, h + 5, k), [0, 0, h - 1, h - 1]])
+        x = np.concatenate([rng.integers(-5, w + 5, k), [0, w - 1, 0, w - 1]])
+        ys.append(torch.from_numpy(y.astype(np.int32)).to(device))
+        xs.append(torch.from_numpy(x.astype(np.int32)).to(device))
+    return ys, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+def test_describe_patches_meets_the_bin_contract(cuda_device, ragged):
+    kern = frontend._frontend_constants(cuda_device)[0]
+    blurred = [frontend._blur(l, kern) for l in _pyramid(cuda_device, ragged)]
+    ys, xs = _keypoints(cuda_device, blurred, 60)
+    fc.reset_launches()
+    angle, desc = fc.describe_patches(blurred, ys, xs)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["extract_patches"] == 1
+    assert angle.shape == (64 * len(blurred),) and desc.shape == (angle.shape[0], 8)
+    report = fc.describe_report(blurred, ys, xs, angle, desc)
+    assert not report["violations"], report
+    # The same launch again gives the same bits: the sums have a fixed order.
+    angle2, desc2 = fc.describe_patches(blurred, ys, xs)
+    assert torch.equal(angle, angle2) and torch.equal(desc, desc2)
+
+
+@pytest.mark.cuda
+def test_describe_patches_on_a_constant_patch(cuda_device):
+    """The kernel's moments of a constant patch are exactly 0: angle 0, bin
+    0, and every comparison v < v false.  (The plain version's moments are
+    rounding noise there, so only the kernel is asserted.)"""
+    img = torch.full((64, 80), 37.25, device=cuda_device)
+    idx = torch.full((3,), 30, dtype=torch.int32, device=cuda_device)
+    angle, desc = fc.describe_patches([img], [idx], [idx])
+    torch.cuda.synchronize()
+    assert torch.equal(angle, torch.zeros_like(angle))
+    assert torch.equal(desc, torch.zeros_like(desc))
+
+
 @pytest.mark.cuda
 def test_extract_patches_kernel_is_bit_exact(cuda_device):
     gray = _gray(cuda_device)
@@ -75,8 +153,17 @@ def test_wrappers_count_launches_and_reject_mixed_devices(cuda_device):
     assert fc.LAUNCHES == {"fast_rank": 1, "extract_patches": 1, "fused_match": 0}
     fc.fast_rank_plain(gray, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
     assert fc.LAUNCHES["fast_rank"] == 1
+    fc.fast_rank_levels([gray, gray[:100].contiguous()], 20.0, 7.0, _BOOST_HI,
+                        _LEVEL_BORDER)
+    fc.describe_patches([gray, gray], [idx, idx], [idx, idx])
+    assert fc.LAUNCHES == {"fast_rank": 2, "extract_patches": 2, "fused_match": 0}
     with pytest.raises(ValueError):
         fc.extract_patches(gray, idx.cpu(), idx.cpu())
+    with pytest.raises(ValueError):
+        fc.fast_rank_levels([gray, gray.cpu()], 20.0, 7.0, _BOOST_HI,
+                            _LEVEL_BORDER)
+    with pytest.raises(ValueError):
+        fc.describe_patches([gray, gray.cpu()], [idx, idx], [idx, idx])
 
 
 def _match_problem(device, n, m, seed=0, r_inf=False):

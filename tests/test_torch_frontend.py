@@ -70,6 +70,39 @@ def test_features_from_jax_levels_match(frames):
                                        rtol=0, atol=1e-4, err_msg=k)
 
 
+def test_frontend_takes_one_call_of_each_kernel_entry(frames, monkeypatch):
+    """A frame goes through ``fast_rank_levels`` once (every level) and
+    ``describe_patches`` once (every keypoint), and through no per-level
+    entry."""
+    from boslam_tpu_torch.ops import frontend_cuda as fc
+
+    _, cfg_t, data = frames
+    calls = []
+
+    def counted(name):
+        fn = getattr(fc, name)
+
+        def wrapper(*a, **k):
+            calls.append((name, len(a[0])))
+            return fn(*a, **k)
+        return wrapper
+
+    def refuse(*a, **k):
+        raise AssertionError("a per-level entry on the frame path")
+
+    for name in ("fast_rank_levels", "describe_patches"):
+        monkeypatch.setattr(fc, name, counted(name))
+    for name in ("fast_rank", "extract_patches"):
+        monkeypatch.setattr(fc, name, refuse)
+    gray, depth = data[0]
+    got = frontend.extract_features(torch.from_numpy(gray),
+                                    torch.from_numpy(depth), cfg_t)
+    n = cfg_t.orb.n_levels
+    assert calls == [("fast_rank_levels", n), ("describe_patches", n)]
+    assert got.desc.shape == (cfg_t.orb.n_features, 8)
+    assert got.angle.shape == (cfg_t.orb.n_features,)
+
+
 def test_extract_features_repeatability(frames):
     cfg_j, cfg_t, data = frames
     for gray, depth in data:

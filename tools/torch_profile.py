@@ -148,7 +148,7 @@ def profile_window(cfg, frames, warmup, top):
     summary["own_kernels"] = {
         name: {"launches_per_frame": cnt / n, "device_ms_per_frame": us / 1e3 / n}
         for name, (cnt, us) in rows
-        if any(k in name for k in ("fast_rank_kernel", "extract_patches_kernel",
+        if any(k in name for k in ("fast_rank_kernel", "describe_patches_kernel",
                                    "match_tiles_kernel", "merge_tiles_kernel"))
     }
     table = [f"{'kernel':90s} {'launches/frame':>14s} {'ms/frame':>10s}"]
