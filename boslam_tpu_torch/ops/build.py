@@ -35,8 +35,8 @@ KERNELS = {
     "extract_patches": ("describe_patches.cu", "boslam_describe_patches",
                         [_P, _P, _P, _P, _P, _P]),
     "fused_match": ("fused_match.cu", "boslam_fused_match",
-                    [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                     _P]),
+                    [_P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _P, _P,
+                     _P, _P, _P, _P, _P]),
 }
 
 _SOURCES = dict(KERNELS, launch_floor=("launch_floor.cu", "boslam_launch_floor",

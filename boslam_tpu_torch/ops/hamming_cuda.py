@@ -2,13 +2,14 @@
 kernel and its plain twin.
 
 ``fused_match_top2`` replaces the JAX package's Pallas kernel of the same
-name (``boslam_tpu/ops/hamming_pallas.py``).  For a CUDA tensor it launches
-``csrc/fused_match.cu`` (per-row best, second-best and argbest over the
-admissible map columns, per-column argmin over valid rows) and applies the
-reference's epilogue in PyTorch; for a CPU tensor it runs the plain twin,
-the materialized [N, M] pipeline ``hamming_matrix_mxu`` + window mask +
+name (``boslam_tpu/ops/hamming_pallas.py``) with its epilogue.  For a CUDA
+tensor it launches ``csrc/fused_match.cu``, two kernels that write the
+match (index, mask, distance) themselves: distances on the tensor cores,
+map tiles without a visible column skipped, max_dist / ratio / mutual
+applied in the second pass.  For a CPU tensor it runs the plain twin, the
+materialized [N, M] pipeline ``hamming_matrix_mxu`` + window mask +
 ``match_top2``.  There is no other route.  ``LAUNCHES["fused_match"]``
-counts kernel launches only.
+counts calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import torch
 from boslam_tpu_torch.matching import hamming
 from boslam_tpu_torch.ops.build import LAUNCHES, check_launch, kernel_fn
 
-_BIG = 1e9   # the reference's masked distance, exact in float32
 TILE = 128   # map columns per block of the kernel's first pass
+ROWS = 128   # frame rows per block of the kernel's first pass
 MAX_ROWS = 1 << 20
+_ALIGN = 16  # bytes: every region of the workspace starts aligned
 
 
 def fused_match_top2_plain(desc_a, uv_a, r_a, valid_a, desc_b, uv_b, vis_b,
@@ -35,60 +37,33 @@ def fused_match_top2_plain(desc_a, uv_a, r_a, valid_a, desc_b, uv_b, vis_b,
                               ratio=ratio, mutual=mutual, extra_mask=window)
 
 
-def _aligned(t: torch.Tensor, dtype, shape, align: int) -> torch.Tensor:
-    """``t`` as a contiguous ``dtype`` tensor whose data is ``align``-byte
-    aligned (a copy only where needed)."""
-    if tuple(t.shape) != tuple(shape):
+def workspace_layout(n: int, m: int):
+    """({region: (byte offset, bytes)}, total bytes) of the one allocation a
+    call makes: the kernel's scratch (per live map tile its rows' (k1, k2)
+    keys, per row chunk its columns' keys, a live flag per tile) and the
+    three outputs."""
+    tiles, chunks = -(-m // TILE), -(-n // ROWS)
+    sizes = (("rowpart", 8 * tiles * n), ("colpart", 4 * chunks * m),
+             ("live", 4 * tiles), ("idx", 4 * n), ("dist", 4 * n),
+             ("ok", n))
+    layout, off = {}, 0
+    for name, size in sizes:
+        layout[name] = (off, size)
+        off += -(-size // _ALIGN) * _ALIGN
+    return layout, off
+
+
+def _operand(t: torch.Tensor, dtype, shape, align: int) -> torch.Tensor:
+    """``t`` as the kernel reads it: contiguous ``dtype`` data whose start is
+    ``align``-byte aligned; a copy only where ``t`` is not that already."""
+    if t.shape != shape:
         raise ValueError(f"fused_match_top2: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    t = t.to(dtype).contiguous()
+    if t.dtype != dtype or not t.is_contiguous():
+        t = t.to(dtype).contiguous()
     if t.data_ptr() % align:
         t = t.clone()
     return t
-
-
-def fused_match_tiles(desc_a, uv_a, r_a, valid_a, desc_b, uv_b, vis_b):
-    """The kernel's raw outputs: (best f32 [N], second f32 [N], bidx i32 [N],
-    colarg i32 [M]); masked distances are 1e9 and an unmatched row has bidx
-    -1.  CUDA tensors only."""
-    n, m = desc_a.shape[0], desc_b.shape[0]
-    dev = desc_a.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_match_tiles: needs CUDA tensors, got {dev}")
-    if not 1 <= n < MAX_ROWS or m < 1:
-        raise ValueError(f"fused_match_top2: need 1 <= N < 2**20 rows and "
-                         f"M >= 1 columns, got N={n}, M={m}")
-    for t in (uv_a, r_a, valid_a, desc_b, uv_b, vis_b):
-        if t.device != dev:
-            raise ValueError("fused_match_top2: all inputs must share one "
-                             "CUDA device")
-    for name, t in (("desc_a", desc_a), ("desc_b", desc_b)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"fused_match_top2: {name} must hold int32 "
-                             f"words, got {t.dtype}")
-    da = _aligned(desc_a, torch.int32, (n, 8), 16)
-    db = _aligned(desc_b, torch.int32, (m, 8), 16)
-    ua = _aligned(uv_a, torch.float32, (n, 2), 8)
-    ub = _aligned(uv_b, torch.float32, (m, 2), 8)
-    r2 = torch.clamp_max(_aligned(r_a, torch.float32, (n,), 4) ** 2, _BIG)
-    va = _aligned(valid_a, torch.bool, (n,), 1)
-    vb = _aligned(vis_b, torch.bool, (m,), 1)
-    tiles = -(-m // TILE)
-    part = torch.empty((3, tiles, n), dtype=torch.int32, device=dev)
-    colarg = torch.empty((m,), dtype=torch.int32, device=dev)
-    best = torch.empty((n,), dtype=torch.float32, device=dev)
-    second = torch.empty((n,), dtype=torch.float32, device=dev)
-    bidx = torch.empty((n,), dtype=torch.int32, device=dev)
-    fn = kernel_fn("fused_match")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(da.data_ptr(), ua.data_ptr(), r2.data_ptr(), va.data_ptr(),
-                 n, db.data_ptr(), ub.data_ptr(), vb.data_ptr(), m,
-                 part.data_ptr(), colarg.data_ptr(), best.data_ptr(),
-                 second.data_ptr(), bidx.data_ptr(), stream)
-    check_launch("fused_match", err)
-    LAUNCHES["fused_match"] += 1
-    return best, second, bidx, colarg
 
 
 def fused_match_top2(desc_a, uv_a, r_a, valid_a, desc_b, uv_b, vis_b,
@@ -104,20 +79,50 @@ def fused_match_top2(desc_a, uv_a, r_a, valid_a, desc_b, uv_b, vis_b,
       max_dist / ratio / mutual: as ``matching.hamming.match_top2``.
 
     Returns (match_idx [N] i32 into B or -1, match_mask [N] bool,
-    match_dist [N] i32).  CUDA tensors -> the kernel; CPU -> the twin.
+    match_dist [N] i32; 1e9 for a row without an admissible column).  CUDA
+    tensors -> the kernel (two launches, the outputs views of one
+    allocation); CPU -> the twin.
     """
-    if desc_a.device.type == "cpu":
+    dev = desc_a.device
+    if dev.type == "cpu":
         return fused_match_top2_plain(desc_a, uv_a, r_a, valid_a, desc_b,
                                       uv_b, vis_b, max_dist, ratio, mutual)
-    best, second, bidx, colarg = fused_match_tiles(
-        desc_a, uv_a, r_a, valid_a, desc_b, uv_b, vis_b)
-    # Epilogue on [N] / [M] vectors, as hamming_pallas.py has it.
+    if dev.type != "cuda":
+        raise ValueError(f"fused_match_top2: needs CPU or CUDA tensors, "
+                         f"got {dev}")
     n, m = desc_a.shape[0], desc_b.shape[0]
-    safe_idx = torch.clamp(bidx, 0, m - 1).long()
-    ok = (valid_a & (bidx >= 0) & (best <= max_dist)
-          & (best <= ratio * second))
-    if mutual:
-        ok = ok & (colarg[safe_idx] == torch.arange(n, device=bidx.device,
-                                                    dtype=torch.int32))
-    idx = torch.where(ok, bidx, -1)
-    return idx.to(torch.int32), ok, best.to(torch.int32)
+    if not 1 <= n < MAX_ROWS or m < 1:
+        raise ValueError(f"fused_match_top2: need 1 <= N < 2**20 rows and "
+                         f"M >= 1 columns, got N={n}, M={m}")
+    for t in (uv_a, r_a, valid_a, desc_b, uv_b, vis_b):
+        if t.device != dev:
+            raise ValueError("fused_match_top2: all inputs must share one "
+                             "CUDA device")
+    for name, t in (("desc_a", desc_a), ("desc_b", desc_b)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"fused_match_top2: {name} must hold int32 "
+                             f"words, got {t.dtype}")
+    da = _operand(desc_a, torch.int32, (n, 8), 16)
+    db = _operand(desc_b, torch.int32, (m, 8), 16)
+    ua = _operand(uv_a, torch.float32, (n, 2), 8)
+    ub = _operand(uv_b, torch.float32, (m, 2), 8)
+    ra = _operand(r_a, torch.float32, (n,), 4)
+    va = _operand(valid_a, torch.bool, (n,), 1)
+    vb = _operand(vis_b, torch.bool, (m,), 1)
+    layout, total = workspace_layout(n, m)
+    ws = torch.empty((total,), dtype=torch.uint8, device=dev)
+    at = {name: ws.data_ptr() + off for name, (off, _) in layout.items()}
+    idx, ok, dist = (ws[layout[k][0]:layout[k][0] + layout[k][1]].view(dt)
+                     for k, dt in (("idx", torch.int32), ("ok", torch.bool),
+                                   ("dist", torch.int32)))
+    fn = kernel_fn("fused_match")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(da.data_ptr(), ua.data_ptr(), ra.data_ptr(), va.data_ptr(),
+                 n, db.data_ptr(), ub.data_ptr(), vb.data_ptr(), m,
+                 float(max_dist), float(ratio), int(bool(mutual)),
+                 at["rowpart"], at["colpart"], at["live"], at["idx"],
+                 at["ok"], at["dist"], stream)
+    check_launch("fused_match", err)
+    LAUNCHES["fused_match"] += 1
+    return idx, ok, dist

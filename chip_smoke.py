@@ -18,13 +18,16 @@ Phases, each fatal on failure:
      ATE on the same sequence;
   4. the streaming Hamming matcher (kernel B3) against its plain version at
      relocalization's shapes (512 frame rows against 65536 map points, no
-     window; a random windowed problem; a ragged map), with its device,
-     plain, eager and bound times;
+     window; a random windowed problem; a ragged map; a live map whose
+     visible columns are the lowest 600 slots; a map with none visible),
+     with its device, plain, eager and bound times;
   5. ``kidnap``: the orbit with blanked frames on a 65536-point map, so that
      tracking is lost twice and relocalized once through the whole-map path
      (B3) and once through BoW; relocalization frames, successes, lost
      frames and closed loops must be the JAX reference's, B3's launches the
-     whole-map attempts, and the ATE within the bound;
+     whole-map attempts, and the ATE within the bound; the input of the
+     first whole-map call is kept and B3 held to its plain version and timed
+     on it;
   6. ``loop``: a full-width sequence on which the JAX reference closes a
      loop; the port must close as many, with the ATE within the bound.
   Phases 5 and 6 also time the rare events on the card, synchronized.
@@ -69,10 +72,14 @@ JAX_REFERENCE = {
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12  # B3's distance product, as the TPU computes it
+PEAK_INT8_OPS_PER_S = 1979e12  # B3's AND-popcount product on the card
 
-# Kernel B3 cases: (name, frame rows, map points, no window).
+# Kernel B3 cases: (name, frame rows, map points, no window); besides these,
+# a live map (only the lowest LIVE_SLOTS columns visible, as the engine's
+# free list fills its map) and a map with no visible column.
 MATCH_CASES = (("reloc", 512, 65536, True), ("window", 512, 65536, False),
                ("ragged", 512, 65536 - 77, False))
+LIVE_SLOTS = 600
 
 N_FRAMES, WARMUP = 120, 10
 FAST_RTOL, FAST_ATOL = 1e-5, 1e-3
@@ -268,22 +275,25 @@ def check_frontend(dev, cfg):
           flush=True)
     print(f"[kernels] all levels match; comparison launches "
           f"{dict(fc.LAUNCHES)}", flush=True)
+    fast["floor"] = floor
     return fast, patch
 
 
-def match_problem(dev, n, m, r_inf, seed=0):
+def match_problem(dev, n, m, r_inf, seed=0, live=None):
     """A matching problem of kernel B3's shapes: random 256-bit words, with
     three quarters of the frame rows copied into random map columns with 0
     to 12 bits flipped and placed 3 px from their keypoints; 90% of the rows
-    valid, 80% of the columns visible.  ``r_inf``: no window."""
+    valid, 80% of the columns visible.  ``r_inf``: no window.  ``live``: the
+    engine's map, whose free list fills the lowest slots: only the lowest
+    ``live`` columns are visible (95% of them) and hold the copies."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     da = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
     db = rng.integers(0, 2**32, size=(m, 8), dtype=np.uint64).astype(np.uint32)
-    rows = rng.permutation(n)[: 3 * n // 4]
-    cols = rng.choice(m, size=rows.size, replace=False)
+    rows = rng.permutation(n)[: min(3 * n // 4, live or m)]
+    cols = rng.choice(live or m, size=rows.size, replace=False)
     flips = np.zeros((rows.size, 256), bool)
     for i, k in enumerate(rng.integers(0, 13, rows.size)):
         flips[i, rng.choice(256, k, replace=False)] = True
@@ -295,60 +305,136 @@ def match_problem(dev, n, m, r_inf, seed=0):
     ub[cols] = ua[rows] + 3.0
     r = (np.full(n, np.inf, np.float32) if r_inf
          else rng.uniform(8.0, 40.0, size=n).astype(np.float32))
+    vis = rng.random(m) < 0.8
+    if live is not None:
+        vis = np.zeros(m, bool)
+        vis[:live] = rng.random(live) < 0.95
     arrays = [da.view(np.int32), ua, r, rng.random(n) < 0.9, db.view(np.int32),
-              ub, rng.random(m) < 0.8]
+              ub, vis]
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
-def match_bound(n, m):
-    """(bound ms, what bounds it) of B3 at N x M: the distance product as
-    the TPU computes it (2*N*M*256 bf16 operations) against the bytes in
-    (words, pixels, radius, masks) and out (best, second, index, colarg)."""
-    ops = 2.0 * n * m * 256
-    bytes_ = n * (32 + 8 + 4 + 1 + 12) + m * (32 + 8 + 1 + 4)
-    t_ops = ops / PEAK_BF16_OPS_PER_S * 1e3
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def match_bound(n, m, v):
+    """(bound ms, what bounds it, the earlier reading) of B3 at N rows x M
+    columns of which V are visible.  The least time: the AND-popcount
+    product over the visible columns (2*N*V*256 operations at the int8 rate)
+    against the bytes the call must move (per row its words, pixel, radius
+    and flag in, index, mask and distance out; every column's visibility;
+    the visible columns' words and pixels).  The earlier reading: the
+    product as the TPU computes it, 2*N*M*256 bf16 operations."""
+    t_ops = 2.0 * n * v * 256 / PEAK_INT8_OPS_PER_S * 1e3
+    t_bytes = (n * (32 + 8 + 4 + 1 + 4 + 1 + 4) + m + v * (32 + 8)) \
+        / PEAK_BYTES_PER_S * 1e3
+    bf16 = 2.0 * n * m * 256 / PEAK_BF16_OPS_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", bf16
+    return t_bytes, "bytes", bf16
 
 
-def check_matcher(dev):
-    """Phase 4: kernel B3 against its plain version, exact; times at the
-    relocalization shape."""
+def hold_matcher(hc, name, prob, settings, min_matches=0):
+    """Kernel B3 against its plain version on ``prob`` in each of
+    ``settings`` (dicts of max_dist / ratio / mutual): idx and ok exactly,
+    dist exactly where ok.  Returns (max abs dist error, matches of the
+    last setting)."""
     import torch
 
+    err, n_ok = 0.0, 0
+    for kw in settings:
+        idx, ok, dist = hc.fused_match_top2(*prob, **kw)
+        idx_p, ok_p, dist_p = hc.fused_match_top2_plain(*prob, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(ok, ok_p) and torch.equal(idx, idx_p)
+                and torch.equal(dist[ok_p], dist_p[ok_p])):
+            fail(f"fused_match {name} {kw}: kernel and plain version differ")
+        n_ok = int(ok_p.sum())
+        if n_ok < min_matches:
+            fail(f"fused_match {name}: only {n_ok} matches")
+        if n_ok:
+            err = max(err, float((dist[ok_p] - dist_p[ok_p]).abs().max()))
+    return err, n_ok
+
+
+ALL_SETTINGS = [dict(max_dist=64, ratio=ratio, mutual=mutual)
+                for mutual in (True, False) for ratio in (1.0, 0.85)]
+
+
+def check_matcher(dev, floor):
+    """Phase 4: kernel B3 against its plain version, exact; times at the
+    relocalization shape, dense and on a live map (``floor``: the empty
+    launch's ms)."""
     from boslam_tpu_torch.ops import hamming_cuda as hc
 
     out = dict(err=0.0)
-    for name, n, m, r_inf in MATCH_CASES:
-        prob = match_problem(dev, n, m, r_inf)
-        for mutual in (True, False):
-            for ratio in (1.0, 0.85):
-                kw = dict(max_dist=64, ratio=ratio, mutual=mutual)
-                idx, ok, dist = hc.fused_match_top2(*prob, **kw)
-                idx_p, ok_p, dist_p = hc.fused_match_top2_plain(*prob, **kw)
-                torch.cuda.synchronize()
-                if not (torch.equal(ok, ok_p) and torch.equal(idx, idx_p)
-                        and torch.equal(dist[ok_p], dist_p[ok_p])):
-                    fail(f"fused_match {name} mutual={mutual} ratio={ratio}: "
-                         f"kernel and plain version differ")
-                if int(ok_p.sum()) < n // 4:
-                    fail(f"fused_match {name}: only {int(ok_p.sum())} matches")
-                out["err"] = max(out["err"], float(
-                    (dist[ok_p] - dist_p[ok_p]).abs().max()))
-        print(f"[fused_match] {name} N={n} M={m}: kernel = plain in all 4 "
-              f"settings, {int(ok_p.sum())} matches at ratio 0.85", flush=True)
-        if name == "reloc":
-            kw = dict(max_dist=50, ratio=0.85, mutual=True)
-            out["ms"] = device_ms(lambda: hc.fused_match_tiles(*prob))
-            out["plain"] = device_ms(lambda: hc.fused_match_top2_plain(*prob, **kw),
-                                     iters=3)
-            out["eager"] = call_ms(lambda: hc.fused_match_top2(*prob, **kw))
-            out["bound"], out["bound_by"] = match_bound(n, m)
-            print(f"[fused_match] {name}: device ms {out['ms']:.4f} (plain "
-                  f"{out['plain']:.4f}), eager ms per call with the epilogue "
-                  f"{out['eager']:.4f}, bound {out['bound']:.5f} ms "
-                  f"({out['bound_by']})", flush=True)
+    kw = dict(max_dist=50, ratio=0.85, mutual=True)
+    cases = [(name, match_problem(dev, n, m, r_inf), n // 4)
+             for name, n, m, r_inf in MATCH_CASES]
+    cases.append(("live_map", match_problem(dev, 512, 65536, True,
+                                            live=LIVE_SLOTS), 100))
+    empty = match_problem(dev, 512, 65536, True)
+    empty[6].zero_()
+    cases.append(("all_invisible", empty, 0))
+    for name, prob, min_ok in cases:
+        err, n_ok = hold_matcher(hc, name, prob, ALL_SETTINGS, min_ok)
+        out["err"] = max(out["err"], err)
+        n, m, v = prob[0].shape[0], prob[4].shape[0], int(prob[6].sum())
+        print(f"[fused_match] {name} N={n} M={m} visible={v}: kernel = plain "
+              f"in all 4 settings, {n_ok} matches at ratio 0.85", flush=True)
+        if name in ("reloc", "live_map"):
+            ms = device_ms(lambda: hc.fused_match_top2(*prob, **kw))
+            bound, by, bf16 = match_bound(n, m, v)
+            key = "" if name == "reloc" else "live_map_"
+            out.update({f"{key}ms": ms, f"{key}bound": bound,
+                        f"{key}bound_by": by, f"{key}visible": v})
+            if name == "reloc":
+                out["bound_bf16_all"] = bf16
+                out["plain"] = device_ms(
+                    lambda: hc.fused_match_top2_plain(*prob, **kw), iters=3)
+                out["eager"] = call_ms(lambda: hc.fused_match_top2(*prob, **kw))
+            print(f"[fused_match] {name}: device ms {ms:.5f} "
+                  f"({ms / floor:.2f} launch floors), bound {bound:.6f} ms "
+                  f"({by}, int8 rate, {v} visible columns; the product over "
+                  f"all {m} columns at the bf16 rate: {bf16:.5f})", flush=True)
+    print(f"[fused_match] reloc: plain {out['plain']:.4f} ms, eager ms per "
+          f"call {out['eager']:.4f}", flush=True)
     return out
+
+
+def capture_first_match():
+    """Wrap the tracker's ``fused_match_top2`` so that the first call's
+    inputs are kept (cloned).  Returns (captured dict, restore)."""
+    from boslam_tpu_torch.tracking import tracker
+
+    fn, captured = tracker.fused_match_top2, {}
+
+    def wrap(*a, **k):
+        if not captured:
+            captured.update(args=[t.clone() for t in a], kw=dict(k))
+        return fn(*a, **k)
+    tracker.fused_match_top2 = wrap
+
+    def restore():
+        tracker.fused_match_top2 = fn
+    return captured, restore
+
+
+def check_captured(captured, floor):
+    """B3 on the input of the engine's first whole-map call: exact against
+    the plain version in its own setting and in all four; device ms."""
+    from boslam_tpu_torch.ops import hamming_cuda as hc
+
+    if not captured:
+        fail("kidnap: no whole-map relocalization call was captured")
+    prob, kw = captured["args"], captured["kw"]
+    err, n_ok = hold_matcher(hc, "kidnap", prob, [kw] + ALL_SETTINGS)
+    n, m, v = prob[0].shape[0], prob[4].shape[0], int(prob[6].sum())
+    ms = device_ms(lambda: hc.fused_match_top2(*prob, **kw))
+    bound, by, _ = match_bound(n, m, v)
+    print(f"[fused_match] kidnap's first whole-map call N={n} M={m} "
+          f"{kw}: {v} visible columns; kernel = plain in its setting and all "
+          f"4 others; device ms {ms:.5f} ({ms / floor:.2f} launch floors), "
+          f"bound {bound:.6f} ms ({by})", flush=True)
+    return dict(captured_ms=ms, captured_bound=bound, visible_columns=v,
+                captured_err=err)
 
 
 def timed_events():
@@ -551,15 +637,20 @@ def main() -> None:
         fail(f"ATE {ate:.5f} m above the bound {bound:.5f} m")
 
     # ---- 4. kernel B3 against its plain version -----------------------------
-    match = check_matcher(dev)
+    match = check_matcher(dev, fast["floor"])
 
     # ---- 5, 6. relocalization and loop closing ------------------------------
     for name in JAX_REFERENCE:
-        report = run_events(name, fc)
+        captured, restore = capture_first_match()
+        try:
+            report = run_events(name, fc)
+        finally:
+            restore()
         if name == "kidnap":
             match["launches"] = report["launches"]["fused_match"]
             if match["launches"] < 1:
                 fail("kidnap: fused_match was never launched")
+            match.update(check_captured(captured, fast["floor"]))
 
     def bound_of(bytes_, ops):
         t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
@@ -584,10 +675,19 @@ def main() -> None:
         {"name": "fused_match", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/fused_match.cu",
          "replaces": "boslam_tpu/ops/hamming_pallas.py:145",
-         "launches": match["launches"], "max_abs_err": match["err"],
+         "launches": match["launches"],
+         "max_abs_err": max(match["err"], match["captured_err"]),
          "ms": match["ms"], "plain_ms": match["plain"],
          "bound_ms": match["bound"], "bound_by": match["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "visible_columns": match["visible"],
+         "bound_bf16_all_columns_ms": match["bound_bf16_all"],
+         "eager_ms": match["eager"],
+         "live_map_ms": match["live_map_ms"],
+         "live_map_bound_ms": match["live_map_bound"],
+         "live_map_visible_columns": match["live_map_visible"],
+         "captured_ms": match["captured_ms"],
+         "captured_bound_ms": match["captured_bound"],
+         "captured_visible_columns": match["visible_columns"]},
     ]
     print("[note] fast_rank: one launch over the 8 levels of one 640x480 "
           "frame (plain_ms: the plain version level by level); "
@@ -595,7 +695,11 @@ def main() -> None:
           "keypoints in one launch (plain_ms: extract_patches_plain -> "
           "orient_and_brief; library_ms: the 8 advanced-indexing gathers, "
           "patches only); launches from phase 3; fused_match: one call at "
-          "512 x 65536 without a window, launches from phase 5; ms, plain_ms "
+          "512 x 65536 without a window, 80% of the columns visible "
+          "(bound_ms over the visible columns at the int8 rate; eager_ms: "
+          "host ms per eager call), live_map_*: the lowest 600 slots "
+          "visible, captured_*: the input of kidnap's first whole-map call, "
+          "launches from phase 5; ms, plain_ms "
           "and library_ms are device times from CUDA-graph replay",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

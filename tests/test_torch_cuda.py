@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _match_cases
 from boslam_tpu_torch.config import CameraConfig, SlamConfig
 from boslam_tpu_torch.features import frontend
 from boslam_tpu_torch.features.frontend import _BOOST_HI, _LEVEL_BORDER
@@ -202,12 +203,33 @@ def test_fused_match_kernel_matches_plain(cuda_device, m, r_inf, mutual, ratio):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("setting", _match_cases.SETTINGS,
+                         ids=lambda s: f"mutual{int(s['mutual'])}-ratio{s['ratio']}")
+@pytest.mark.parametrize("name", list(_match_cases.CASES))
+def test_fused_match_kernel_matches_plain_on_edge_cases(cuda_device, name, setting):
+    """tests/_match_cases.py: a sparse map, none visible, ties, edges."""
+    arrays, max_dist = _match_cases.case(name)
+    prob = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+            .to(cuda_device) for a in arrays]
+    idx, ok, dist = hc.fused_match_top2(*prob, max_dist=max_dist, **setting)
+    idx_p, ok_p, dist_p = hc.fused_match_top2_plain(*prob, max_dist=max_dist,
+                                                   **setting)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(idx, idx_p)
+    assert torch.equal(dist[ok_p], dist_p[ok_p])
+    _match_cases.expect(name, idx.cpu().numpy(), ok.cpu().numpy(),
+                        dist.cpu().numpy(), **setting)
+
+
+@pytest.mark.cuda
 def test_fused_match_counts_launches_and_rejects_bad_inputs(cuda_device):
     prob = _match_problem(cuda_device, 64, 300)
     fc.reset_launches()
-    hc.fused_match_top2(*prob, max_dist=64)
-    hc.fused_match_top2_plain(*prob, max_dist=64)
+    out = hc.fused_match_top2(*prob, max_dist=64)
+    plain = hc.fused_match_top2_plain(*prob, max_dist=64)
     assert fc.LAUNCHES["fused_match"] == 1
+    for a, b in zip(out, plain):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
     with pytest.raises(ValueError):
         hc.fused_match_top2(prob[0].long(), *prob[1:], max_dist=64)
     with pytest.raises(ValueError):

@@ -15,6 +15,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import _match_cases
 import _torch_parity  # noqa: F401  (thread cap, TF32 off)
 from boslam_tpu.config import CameraConfig
 from boslam_tpu.features.frontend import (
@@ -367,6 +368,21 @@ def test_fused_match_twin_infinite_radius():
     np.testing.assert_array_equal(got[0], ref[0])
 
 
+@pytest.mark.parametrize("setting", _match_cases.SETTINGS,
+                         ids=lambda s: f"mutual{int(s['mutual'])}-ratio{s['ratio']}")
+@pytest.mark.parametrize("name", list(_match_cases.CASES))
+def test_fused_match_twin_matches_pallas_on_edge_cases(name, setting):
+    """A sparse map (whole tiles without a visible column), a map with none
+    visible, ties within and across tiles and between frame rows, and edges
+    (distance 256, max_dist at a distance's exact value, N = 37)."""
+    prob, max_dist = _match_cases.case(name)
+    ref, got = _match_both(prob, max_dist=max_dist, **setting)
+    _match_cases.expect(name, *ref, **setting)
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[2][ref[1]], ref[2][ref[1]])
+
+
 def test_fused_match_cpu_takes_the_twin_and_checks_inputs():
     prob = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
             for a in _match_problem(np.random.default_rng(2), n=16, m=64)]
@@ -374,7 +390,22 @@ def test_fused_match_cpu_takes_the_twin_and_checks_inputs():
     hc.fused_match_top2(*prob, max_dist=64)
     assert fc.LAUNCHES == before and hc.LAUNCHES is fc.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
-        hc.fused_match_tiles(*prob)
+        hc.fused_match_top2(*(t.to("meta") for t in prob), max_dist=64)
+
+
+@pytest.mark.parametrize("n,m", [(512, 65536), (37, 256), (1, 1), (513, 65459)])
+def test_fused_match_workspace_layout(n, m):
+    """One allocation holds the kernel's scratch and the three outputs:
+    regions aligned, disjoint, of the sizes the kernel indexes."""
+    layout, total = hc.workspace_layout(n, m)
+    tiles, chunks = -(-m // hc.TILE), -(-n // hc.ROWS)
+    assert {k: s for k, (_, s) in layout.items()} == {
+        "rowpart": 8 * tiles * n, "colpart": 4 * chunks * m,
+        "live": 4 * tiles, "idx": 4 * n, "dist": 4 * n, "ok": n}
+    spans = sorted(layout.values())
+    assert all(off % 16 == 0 for off, _ in spans)
+    assert all(a + s <= b for (a, s), (b, _) in zip(spans, spans[1:]))
+    assert spans[-1][0] + spans[-1][1] <= total < spans[-1][0] + spans[-1][1] + 16
 
 
 def test_kernel_build_is_keyed_by_source():
