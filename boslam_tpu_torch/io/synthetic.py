@@ -259,3 +259,109 @@ def render_sequence(
             )
         frames.append((float(ts), rgb, depth))
     return frames
+
+
+def synthetic_ba_problem(cfg, rng, n_kf: int, n_pts: int, obs_per_kf: int,
+                         pose_noise: float = 0.01, pt_noise: float = 0.02,
+                         px_noise: float = 0.3):
+    """Large-scale synthetic bundle-adjustment MapState (50k+ landmark
+    global BA without a dataset on disk), on the CPU.
+
+    Scatters ``n_pts`` landmarks in a box, walks ``n_kf`` camera poses
+    through it, gives every keyframe ``obs_per_kf`` observations of visible
+    points (uv from exact projection + px_noise), then perturbs poses and
+    points: the global-BA workload is recovering the exact geometry.  The
+    draws from ``rng`` come in the order of ``boslam_tpu.io.synthetic``'s
+    generator, so one seed gives both packages the same problem.
+
+    Returns (MapState, gt_poses [n_kf, 7], gt_pts [n_pts, 3]).
+    """
+    import torch
+
+    from boslam_tpu_torch.geometry import se3
+    from boslam_tpu_torch.mapping.map_state import empty_map
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+    cam = cfg.camera
+    K = cfg.map.max_keyframes
+    P = cfg.map.max_points
+    N = cfg.orb.n_features
+    assert n_kf <= K and n_pts <= P and obs_per_kf <= N
+
+    pts = np.stack([
+        rng.uniform(-6.0, 6.0, n_pts),
+        rng.uniform(-2.5, 2.5, n_pts),
+        rng.uniform(-6.0, 6.0, n_pts),
+    ], -1).astype(np.float32)
+
+    # Camera ring inside the box looking outward: every point seen from a
+    # handful of poses.
+    a = 2 * np.pi * np.arange(n_kf) / n_kf
+    xi = np.stack([np.zeros(n_kf), a, np.zeros(n_kf), 0.4 * np.cos(a),
+                   np.zeros(n_kf), 0.4 * np.sin(a)], -1)
+    gt_poses = se3.exp(f32(xi)).numpy()
+
+    st = empty_map(cfg, "cpu")
+    kf_pose = st.kf_pose.numpy().copy()
+    kf_uv = st.kf_uv.numpy().copy()
+    kf_depth = st.kf_depth.numpy().copy()
+    kf_obs = st.kf_obs_pt.numpy().copy()
+    kf_kpv = st.kf_kp_valid.numpy().copy()
+    kf_valid = st.kf_valid.numpy().copy()
+    kf_seq = st.kf_seq.numpy().copy()
+    obs_count = np.zeros(n_pts, np.int64)
+    # All projections in one numpy pass.
+    R_all = se3.quat_to_mat(f32(gt_poses[:, :4])).numpy()
+    xc_all = np.einsum("kij,pj->kpi", R_all, pts) + gt_poses[:, None, 4:]
+    z_all = xc_all[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u_all = cam.fx * xc_all[..., 0] / z_all + cam.cx
+        v_all = cam.fy * xc_all[..., 1] / z_all + cam.cy
+    vis_all = (
+        (z_all > cam.depth_min) & (z_all < cam.depth_max)
+        & (u_all >= 1) & (u_all < cam.width - 1)
+        & (v_all >= 1) & (v_all < cam.height - 1)
+    )
+    for k in range(n_kf):
+        xc = xc_all[k]
+        uv = np.stack([u_all[k], v_all[k]], -1)
+        cand = np.where(vis_all[k])[0]
+        # Prefer under-observed points so coverage stays uniform.
+        order = np.argsort(obs_count[cand] + rng.uniform(0, 0.5, len(cand)))
+        take = cand[order[:obs_per_kf]]
+        obs_count[take] += 1
+        s = len(take)
+        kf_pose[k] = gt_poses[k]
+        kf_uv[k, :s] = uv[take] + rng.normal(0, px_noise, (s, 2))
+        kf_depth[k, :s] = xc[take, 2] * (1 + rng.normal(0, 0.002, s))
+        kf_obs[k, :s] = take
+        kf_kpv[k, :s] = True
+        kf_valid[k] = True
+        kf_seq[k] = k
+
+    seen = obs_count >= 2
+    # Drop under-constrained points from the problem.
+    kf_obs = np.where(
+        (kf_obs >= 0) & seen[np.clip(kf_obs, 0, n_pts - 1)], kf_obs, -1
+    )
+    pt_xyz = st.pt_xyz.numpy().copy()
+    pt_valid = st.pt_valid.numpy().copy()
+    pt_xyz[:n_pts] = pts + rng.normal(0, pt_noise, pts.shape)
+    pt_valid[:n_pts] = seen
+
+    init_pose = kf_pose.copy()
+    for k in range(1, n_kf):
+        init_pose[k] = se3.retract(f32(kf_pose[k]),
+                                   f32(rng.normal(0, pose_noise, 6))).numpy()
+
+    st = st._replace(
+        kf_pose=torch.from_numpy(init_pose), kf_uv=torch.from_numpy(kf_uv),
+        kf_depth=torch.from_numpy(kf_depth), kf_obs_pt=torch.from_numpy(kf_obs),
+        kf_kp_valid=torch.from_numpy(kf_kpv),
+        kf_valid=torch.from_numpy(kf_valid), kf_seq=torch.from_numpy(kf_seq),
+        n_kf=torch.tensor(n_kf, dtype=torch.int32),
+        pt_xyz=torch.from_numpy(pt_xyz), pt_valid=torch.from_numpy(pt_valid),
+    )
+    return st, torch.from_numpy(gt_poses), torch.from_numpy(pts)

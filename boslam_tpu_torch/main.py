@@ -2,6 +2,7 @@
 
 Examples:
     python -m boslam_tpu_torch.main --synthetic 120 --out traj.txt
+    python -m boslam_tpu_torch.main --synthetic 120 --global-ba
     python -m boslam_tpu_torch.main --tum /data/rgbd_dataset_freiburg1_xyz \
         --camera fr1 --out traj.txt
 
@@ -30,6 +31,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="run full-map BA after loop closures AND at exit")
     args = ap.parse_args()
 
     import torch
@@ -42,6 +45,12 @@ def main() -> None:
 
     cam = {"fr1": TUM_FR1, "fr2": TUM_FR2, "fr3": TUM_FR3}[args.camera]
     cfg = SlamConfig(camera=cam)
+    if args.global_ba:
+        import dataclasses
+
+        cfg = cfg.replace(
+            loop=dataclasses.replace(cfg.loop, run_global_ba=True)
+        )
 
     gt = None
     if args.synthetic:
@@ -68,6 +77,11 @@ def main() -> None:
                 f"inl={m.get('n_inliers', 0)} {m.get('event', '')}",
                 file=sys.stderr,
             )
+    if args.global_ba:
+        slam.flush()
+        rec = slam.run_global_ba()
+        print(f"global BA: cost {rec['gba_cost0']:.1f} -> {rec['gba_cost1']:.1f} "
+              f"({rec['gba_edges']} edges)", file=sys.stderr)
     ts_arr, poses = slam.trajectory()
     tum.save_trajectory(args.out, ts_arr, poses)
     print(f"wrote {len(ts_arr)} poses to {args.out}", file=sys.stderr)

@@ -14,8 +14,10 @@ keyframe event ends with the keyframe's BoW vector and loop detection.
 The host sees one packed ``[OUT_DIM]`` row per frame, the reference's
 device->host contract, field for field.  ``flush`` drains the rows and runs
 the host's rare events: vocabulary training and refresh, loop verification
-(dispatched at one flush, resolved at the next) and loop correction.
-Asynchronous mapping and global BA are not ported yet.
+(dispatched at one flush, resolved at the next), loop correction and,
+after it when ``loop.run_global_ba`` is set, global bundle adjustment
+(``run_global_ba``, also callable on its own).  Asynchronous mapping is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from boslam_tpu_torch.loopclosure import (
 )
 from boslam_tpu_torch.mapping import map_ops
 from boslam_tpu_torch.mapping.map_state import empty_map
+from boslam_tpu_torch.solvers.global_ba import global_bundle_adjustment
 from boslam_tpu_torch.solvers.local_ba import local_bundle_adjustment
 from boslam_tpu_torch.solvers.pose_graph import close_loop_update
 from boslam_tpu_torch.tracking.tracker import (
@@ -243,10 +246,6 @@ class SlamSystem:
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, chunk: int = 16,
                  device=None):
-        if cfg.loop.run_global_ba:
-            raise NotImplementedError(
-                "loop.run_global_ba: global bundle adjustment after a loop "
-                "closure is not ported yet (ROADMAP A7)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
@@ -462,13 +461,43 @@ class SlamSystem:
         )
         self.n_loops_closed += 1
         (rec if rec is not None else self.metrics[-1])["event"] = "loop_closed"
+        if cfg.loop.run_global_ba:
+            # Optional full-map BA after the pose-graph correction.
+            self.run_global_ba()
 
     # ------------------------------------------------------------------
     def run_global_ba(self) -> dict:
-        """Full-map bundle adjustment: not ported yet (ROADMAP A7)."""
-        raise NotImplementedError(
-            "run_global_ba: global bundle adjustment is not ported yet "
-            "(ROADMAP A7)")
+        """Full-map bundle adjustment on this engine's device; returns the
+        record it adds to the last frame's metrics (costs before and after,
+        edge count)."""
+        cfg = self.cfg
+        # The latest keyframe anchors the tracked pose across the solve:
+        # keep the frame's pose relative to it (T_cur_ref = pose_cw ∘
+        # T_wc(ref)) and re-attach it to the corrected pose of ref; snapping
+        # to the keyframe's pose would drop the motion since that keyframe.
+        ref = self.sync.value(torch.argmax(
+            torch.where(self.map.kf_valid, self.map.kf_seq, -1)))
+        t_cur_ref = se3.pose_compose(
+            self.track.pose_cw, se3.pose_inv(self.map.kf_pose[ref])
+        )
+        self.map, stats = global_bundle_adjustment(
+            cfg, self.map, lm_iters=cfg.loop.global_ba_iters,
+            cg_iters=cfg.loop.global_ba_cg_iters, sync=self.sync,
+        )
+        self.track = self.track._replace(
+            pose_cw=se3.pose_compose(t_cur_ref, self.map.kf_pose[ref]),
+            velocity=se3.pose_identity(device=self.device),
+        )
+        self.n_global_ba += 1
+        rec = {
+            "gba_cost0": float(stats.cost0),
+            "gba_cost1": float(stats.cost1),
+            "gba_edges": int(stats.n_edges),
+            "gba_distributed": False,
+        }
+        if self.metrics:
+            self.metrics[-1].update(rec)
+        return rec
 
     # ------------------------------------------------------------------
     def trajectory(self):

@@ -29,8 +29,18 @@ Phases, each fatal on failure:
      first whole-map call is kept and B3 held to its plain version and timed
      on it;
   6. ``loop``: a full-width sequence on which the JAX reference closes a
-     loop; the port must close as many, with the ATE within the bound.
+     loop; the port must close as many, with the ATE within the bound (the
+     keyframe it closes at is printed beside the reference's).
   Phases 5 and 6 also time the rare events on the card, synchronized.
+  7. global BA: (a) the bench's synthetic problem at full width (256
+     keyframes, 50000 points, 512 observations each, rng seed 0): edges and
+     landmarks exactly the JAX reference's, cost0, cost1 and the largest
+     pose error against ground truth within their tolerances; 6 LM and 40
+     CG iterations timed by CUDA events (median of 3 after a warm-up), LM
+     iterations per second, CG iterations per LM iteration, and one CG
+     application's device time beside its bound; (b) ``run_global_ba()``
+     on the engine that phase 6 leaves: cost1 <= cost0 and the ATE after it
+     within the bound of the JAX reference's ATE after global BA.
 
 Prints the ``kernels`` JSON line, the card line and, last, the device JSON.
 Exits non-zero without a result when no CUDA device is visible or the port
@@ -63,10 +73,38 @@ JAX_REFERENCE = {
     "kidnap": dict(ate_m=0.020950505509972572, reloc_frames=[9, 10, 71, 72],
                    reloc_ok_frames=[10, 72],
                    reloc_paths=["global", "global", "bow", "bow"],
-                   lost_frames=[8, 70], n_loops_closed=0),
+                   lost_frames=[8, 70], n_loops_closed=0,
+                   loop_closed_frames=[]),
     "loop": dict(ate_m=0.12142354995012283, reloc_frames=[], reloc_ok_frames=[],
-                 reloc_paths=[], lost_frames=[], n_loops_closed=1),
+                 reloc_paths=[], lost_frames=[], n_loops_closed=1,
+                 loop_closed_frames=[291]),
 }
+
+# Printed beside the reference's value but not held (ROADMAP C1): the frame
+# at which the loop closes depends on float rounding the port cannot share.
+# On ``loop`` the engines' first integer divergence is one octave-7
+# keypoint at frame 24, from pyramid levels an ulp apart (XLA's resize
+# contraction against the port's two matmuls); the port's verification on
+# the reference's state decides every request as the reference does, but
+# its keyframe culls differ, so the keyframes of the reference's closure
+# are gone before the port resolves them (``tools/loop_verify_probe.py``,
+# ``tools/engine_divergence.py``).
+REPORTED_ONLY = ("loop_closed_frames",)
+
+# Phase 7a: the JAX reference's global BA on the bench's synthetic problem,
+# ``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --ba-problem``.
+GBA_PROBLEM = dict(n_kf=256, n_pts=50000, obs_per_kf=512, lm_iters=6,
+                   cg_iters=40)
+JAX_GBA = dict(n_edges=131019, n_landmarks=40155, cost0=2382497.0,
+               cost1=9808.646484375, max_pose_err_m=0.0021189532708376646)
+GBA_COST0_RTOL = 1e-4
+GBA_COST1_RTOL = 1e-2
+GBA_POSE_ERR_FACTOR, GBA_POSE_ERR_SLACK_M = 1.1, 1e-4
+# Phase 7b: the JAX reference's ATE after one global BA at the end of
+# ``loop``, ``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --sequence
+# loop --loops --global-ba`` (27 keyframes, 1033 points, 6262 edges, cost
+# 36201.90 -> 19766.19, ATE 0.12142 -> 0.15859 m).
+JAX_GBA_LOOP_ATE_AFTER_M = 0.15858738124370575
 
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound.
 PEAK_BYTES_PER_S = 3.35e12
@@ -509,6 +547,8 @@ def run_events(name, fc):
         reloc_paths=["bow" if ready[i] else "global" for i in reloc],
         lost_frames=[i for i, r in enumerate(m) if r["lost"]],
         n_loops_closed=slam.n_loops_closed,
+        loop_closed_frames=[i for i, r in enumerate(m)
+                            if r.get("event") == "loop_closed"],
     )
     rmse, _ = align.ate_rmse(
         torch.from_numpy(est[:, 4:].astype(np.float32)),
@@ -524,7 +564,11 @@ def run_events(name, fc):
     if not np.all(np.isfinite(est)) or est.shape != (len(frames), 7):
         fail(f"{name}: trajectory not finite or wrong shape {est.shape}")
     for k, v in got.items():
-        if v != ref[k]:
+        if k in REPORTED_ONLY:
+            print(f"[{name}] {k}: port {v}, JAX reference {ref[k]}"
+                  f"{'' if v == ref[k] else ' (they differ; see REPORTED_ONLY)'}",
+                  flush=True)
+        elif v != ref[k]:
             fail(f"{name}: {k} {v}, the JAX reference has {ref[k]}")
     bound = ATE_FACTOR * ref["ate_m"] + ATE_SLACK_M
     if not ate <= bound:
@@ -536,6 +580,167 @@ def run_events(name, fc):
     if launches["fused_match"] != n_global:
         fail(f"{name}: fused_match launched {launches['fused_match']} times "
              f"for {n_global} whole-map relocalization attempts")
+    return report, slam, traj
+
+
+def gba_problem(dev):
+    """Phase 7a's input: the bench's synthetic problem, moved to ``dev``."""
+    import numpy as np
+
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.io import synthetic
+    from boslam_tpu_torch.mapping.map_state import MapState
+
+    cfg = SlamConfig.from_dict(dict(map=dict(max_keyframes=256,
+                                             max_points=65536),
+                                    orb=dict(n_features=512)))
+    p = GBA_PROBLEM
+    st, gt_poses, _ = synthetic.synthetic_ba_problem(
+        cfg, np.random.default_rng(0), n_kf=p["n_kf"], n_pts=p["n_pts"],
+        obs_per_kf=p["obs_per_kf"])
+    return cfg, MapState(*(t.to(dev) for t in st)), gt_poses.to(dev)
+
+
+def cg_bytes_ops(terms, x):
+    """(bytes, operations) of one CG application (``_schur_matvec``) from
+    its inputs' shapes: every input read once (the camera-order and sorted
+    Jacobians and weights, the schedule's permutations, point ids and
+    ranges, the damped blocks, x), y written once; per edge 36 (Jc x) + 3
+    (w) + 18 (J_pt^T u) + 3 (the point sum) + 18 (J_pt z) + 3 (w) + 36
+    (Jc^T c) + 6 (the camera sum) operations, per point 18 (H_pp^-1 t) and
+    per camera 72 + 6 (H_cc x - cross)."""
+    Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, Hpp_inv, sched = terms
+    tensors = [Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, Hpp_inv, sched.perm,
+               sched.inv_perm, sched.pt_sorted, sched.starts, sched.ends, x, x]
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    E, P, K = w.shape[0], Hpp_inv.shape[0], x.shape[0]
+    return float(n_bytes), float(123 * E + 18 * P + 78 * K)
+
+
+def check_global_ba(dev, card):
+    """Phase 7a: the synthetic problem against the JAX reference's numbers,
+    timed; one CG application's device time and bound.  ``card``: the
+    card's name and power limit, printed beside the times.  Returns a
+    report."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.geometry import se3
+    from boslam_tpu_torch.solvers import global_ba as gba
+    from boslam_tpu_torch.tracking.tracker import HostSync
+
+    t0 = time.perf_counter()
+    cfg, st, gt_poses = gba_problem(dev)
+    print(f"[gba] synthetic problem built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    p = GBA_PROBLEM
+
+    def solve(sync):
+        return gba.global_bundle_adjustment(
+            cfg, st, lm_iters=p["lm_iters"], cg_iters=p["cg_iters"], sync=sync)
+
+    st2, stats = solve(HostSync())  # warm-up
+    torch.cuda.synchronize()
+    times, steps, reads = [], None, 0
+    for _ in range(3):
+        sync = HostSync()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st2, stats = solve(sync)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        steps, reads = stats.pcg_steps, sync.count
+    ms = float(np.median(times))
+    n_kf = p["n_kf"]
+    _, terr = se3.pose_distance(st2.kf_pose[:n_kf], gt_poses)
+    got = dict(n_edges=int(stats.n_edges),
+               n_landmarks=int(st.pt_valid.sum()),
+               cost0=float(stats.cost0), cost1=float(stats.cost1),
+               max_pose_err_m=float(terr.max()))
+
+    # One CG application on the first LM iteration's system.
+    P = st.pt_xyz.shape[0]
+    K, N = st.kf_obs_pt.shape
+    edges = gba.build_global_edges(cfg, st)
+    sched = gba._point_schedule(edges, P)
+    mask = st.kf_valid & (torch.arange(K, device=dev) > 0)
+    (_, Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, _, Hpp_inv, _) = gba._assemble(
+        cfg, st.kf_pose, st.pt_xyz, edges, sched, mask,
+        torch.tensor(1e-4, device=dev), cfg.local_ba.huber_delta, K, N)
+    x = torch.randn(K, 6, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0)) * mask[:, None]
+    args = (Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, Hpp_inv, edges, sched, K, N)
+    cg_ms = device_ms(lambda: gba._schur_matvec(x, *args))
+    cg_eager = call_ms(lambda: gba._schur_matvec(x, *args))
+    n_bytes, n_ops = cg_bytes_ops(
+        (Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, Hpp_inv, sched), x)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    report = dict(got, jax_reference=JAX_GBA, card=card, solve_ms=ms,
+                  solve_ms_all=times,
+                  lm_iters_per_s=p["lm_iters"] / (ms / 1e3),
+                  pcg_steps_per_lm_iter=list(steps), host_reads=reads,
+                  cg_application_device_ms=cg_ms,
+                  cg_application_eager_ms=cg_eager,
+                  cg_application_bytes=n_bytes, cg_application_ops=n_ops,
+                  cg_application_bound_ms=max(t_bytes, t_ops),
+                  cg_application_bound_by="bytes" if t_bytes >= t_ops
+                  else "operations")
+    print(f"[gba] synthetic {json.dumps(report)}", flush=True)
+    for k in ("n_edges", "n_landmarks"):
+        if got[k] != JAX_GBA[k]:
+            fail(f"global BA: {k} {got[k]}, the JAX reference has {JAX_GBA[k]}")
+    for k, rtol in (("cost0", GBA_COST0_RTOL), ("cost1", GBA_COST1_RTOL)):
+        if not abs(got[k] - JAX_GBA[k]) <= rtol * JAX_GBA[k]:
+            fail(f"global BA: {k} {got[k]} not within {rtol} of the JAX "
+                 f"reference's {JAX_GBA[k]}")
+    bound = GBA_POSE_ERR_FACTOR * JAX_GBA["max_pose_err_m"] + GBA_POSE_ERR_SLACK_M
+    if not got["max_pose_err_m"] <= bound:
+        fail(f"global BA: largest pose error {got['max_pose_err_m']} m above "
+             f"{bound} m")
+    if not all(1 <= k <= p["cg_iters"] for k in steps):
+        fail(f"global BA: CG iterations per LM iteration {steps}")
+    return report
+
+
+def check_engine_gba(slam, traj):
+    """Phase 7b: ``run_global_ba()`` on the engine phase 6 left."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.geometry import align
+
+    def ate():
+        _, est = slam.trajectory()
+        if not np.all(np.isfinite(est)):
+            fail("global BA: trajectory not finite")
+        rmse, _ = align.ate_rmse(
+            torch.from_numpy(est[:, 4:].astype(np.float32)),
+            torch.from_numpy(traj.poses_twc[:, 4:].astype(np.float32)))
+        return float(rmse)
+
+    before = ate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = slam.run_global_ba()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = ate()
+    report = dict(keyframes=slam.n_keyframes, points=slam.n_points,
+                  edges=rec["gba_edges"], cost0=rec["gba_cost0"],
+                  cost1=rec["gba_cost1"], ate_before_m=before,
+                  ate_after_m=after,
+                  jax_reference_ate_after_m=JAX_GBA_LOOP_ATE_AFTER_M,
+                  synchronized_ms=ms)
+    print(f"[gba] loop {json.dumps(report)}", flush=True)
+    if not rec["gba_cost1"] <= rec["gba_cost0"]:
+        fail(f"global BA on loop: cost {rec['gba_cost0']} -> {rec['gba_cost1']}")
+    bound = ATE_FACTOR * JAX_GBA_LOOP_ATE_AFTER_M + ATE_SLACK_M
+    if not after <= bound:
+        fail(f"global BA on loop: ATE after {after:.5f} m above the bound "
+             f"{bound:.5f} m")
     return report
 
 
@@ -643,7 +848,7 @@ def main() -> None:
     for name in JAX_REFERENCE:
         captured, restore = capture_first_match()
         try:
-            report = run_events(name, fc)
+            report, slam, traj = run_events(name, fc)
         finally:
             restore()
         if name == "kidnap":
@@ -651,6 +856,11 @@ def main() -> None:
             if match["launches"] < 1:
                 fail("kidnap: fused_match was never launched")
             match.update(check_captured(captured, fast["floor"]))
+
+    # ---- 7. global BA ---------------------------------------------------------
+    check_engine_gba(slam, traj)  # the engine of phase 6, ``loop``
+    del slam
+    check_global_ba(dev, smi)
 
     def bound_of(bytes_, ops):
         t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3

@@ -191,6 +191,11 @@ def test_loop_fields_match_jax_engine(runs):
     np.testing.assert_allclose(have["kf_bow"], want["kf_bow"], atol=1e-5)
 
 
+CLOSURE = dict(tp.E2E, loop=dict(min_gap_kf=8, consistency=2,
+                                 min_score_matches=25),
+               tracker=dict(kf_min_interval=2, kf_tracked_ratio=0.75))
+
+
 @pytest.fixture(scope="module")
 def closure():
     """The JAX engine on the closed orbit of tests/test_slam_e2e.py's loop
@@ -198,9 +203,7 @@ def closure():
     and its map and tracker right after the closure."""
     from boslam_tpu.slam import SlamSystem as JaxSlam
 
-    d = dict(tp.E2E, loop=dict(min_gap_kf=8, consistency=2, min_score_matches=25),
-             tracker=dict(kf_min_interval=2, kf_tracked_ratio=0.75))
-    cfg_j, cfg_t = tp.configs(d)
+    cfg_j, cfg_t = tp.configs(CLOSURE)
     traj = synthetic.orbit_trajectory(80, radius=1.2, yaw_amplitude=0.5, loop=True)
     frames = synthetic.render_sequence(cfg_t.camera, traj)
     snaps, closed = [], []
@@ -229,15 +232,12 @@ def closure():
     return cfg_t, closed[0]
 
 
-def test_host_loop_closure_matches_jax_engine(closure):
-    """A JAX state with consistent candidates pending, carried into the
-    port: ``_dispatch_verify`` -> ``_resolve_pending_verify`` ->
-    ``_close_loop`` closes the same loop with JAX's RANSAC noise, and the
-    corrected map and tracker agree."""
+def _replay_closure(cfg_t, snap):
+    """A port engine holding the JAX state ``snap`` captured at dispatch,
+    run through ``_dispatch_verify`` -> ``_resolve_pending_verify`` with
+    JAX's RANSAC noise.  Returns (engine, the requests' records)."""
     import jax
 
-    cfg_t, c = closure
-    snap = c["snap"]
     slam = SlamSystem(cfg_t, device="cpu")
     slam.map = convert.map_state_from_numpy(snap["map"], "cpu")
     slam.loop = convert.loop_state_from_numpy(snap["loop"], "cpu")
@@ -250,9 +250,21 @@ def test_host_loop_closure_matches_jax_engine(closure):
     slam.generator = torch.from_numpy(
         np.stack([np.array(jax.random.gumbel(k, shape)) for k in keys]))
     recs = [{} for _ in snap["reqs"]]
+    slam.metrics = [recs[-1]]
     slam._dispatch_verify([(k, c_, r) for (k, c_), r in zip(snap["reqs"], recs)])
     slam._resolve_pending_verify()
-    assert slam.n_loops_closed == snap["loops"] + 1
+    return slam, recs
+
+
+def test_host_loop_closure_matches_jax_engine(closure):
+    """A JAX state with consistent candidates pending, carried into the
+    port: ``_dispatch_verify`` -> ``_resolve_pending_verify`` ->
+    ``_close_loop`` closes the same loop with JAX's RANSAC noise, and the
+    corrected map and tracker agree."""
+    cfg_t, c = closure
+    snap = c["snap"]
+    slam, recs = _replay_closure(cfg_t, snap)
+    assert slam.n_loops_closed == snap["loops"] + 1 and slam.n_global_ba == 0
     closed = [pair for pair, r in zip(snap["reqs"], recs) if r.get("event") == "loop_closed"]
     assert closed == [c["pair"]]
     got_map = convert.map_state_to_numpy(slam.map)
@@ -263,13 +275,93 @@ def test_host_loop_closure_matches_jax_engine(closure):
     np.testing.assert_allclose(slam.track.pose_cw.numpy(), c["track"]["pose_cw"], atol=1e-4)
 
 
-def test_global_ba_is_not_ported_yet():
-    cfg = tp.configs(dict(tp.E2E, loop=dict(run_global_ba=True)))[1]
-    with pytest.raises(NotImplementedError, match="global bundle adjustment"):
-        SlamSystem(cfg, device="cpu")
-    slam = SlamSystem(tp.configs(tp.E2E)[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        slam.run_global_ba()
+# run_global_ba against the JAX engine: the record's edge count exactly,
+# cost0 to rtol 1e-5 and cost1 to rtol 1e-3, poses and points within 1e-4.
+GBA_COST0_RTOL, GBA_COST1_RTOL, GBA_ATOL = 1e-5, 1e-3, 1e-4
+
+
+def _port_engine_from(cfg_t, ref):
+    """A port engine on the CPU holding ``ref``'s map, tracker and metric
+    records (copies, so that ``ref`` is left as it was)."""
+    slam = SlamSystem(cfg_t, device="cpu")
+    slam.map = convert.map_state_from_numpy(tp.np_dict(ref.map), "cpu")
+    slam.track = convert.track_state_from_numpy(tp.np_dict(ref.track), "cpu")
+    slam.metrics = [dict(m) for m in ref.metrics]
+    return slam
+
+
+def _assert_gba_record(have, want, cost0_rtol=GBA_COST0_RTOL,
+                       cost1_rtol=GBA_COST1_RTOL):
+    assert set(have) == set(want) == {"gba_cost0", "gba_cost1", "gba_edges",
+                                      "gba_distributed"}
+    assert have["gba_edges"] == want["gba_edges"] > 0
+    assert have["gba_distributed"] is want["gba_distributed"] is False
+    assert have["gba_cost0"] == pytest.approx(want["gba_cost0"], rel=cost0_rtol)
+    assert have["gba_cost1"] == pytest.approx(want["gba_cost1"], rel=cost1_rtol)
+    assert have["gba_cost1"] <= have["gba_cost0"]
+
+
+def test_run_global_ba_matches_jax_engine(runs):
+    """``run_global_ba`` on the JAX engine's map and tracker after the
+    40-frame orbit, in both engines: the same record, keyframe poses,
+    points and re-attached tracked pose (velocity reset)."""
+    import copy
+
+    _, ref, _ = runs
+    jax_slam = copy.copy(ref)
+    jax_slam.metrics = [dict(m) for m in ref.metrics]
+    slam = _port_engine_from(tp.configs(tp.E2E)[1], ref)
+    syncs = slam.sync.count
+    want = jax_slam.run_global_ba()
+    have = slam.run_global_ba()
+    _assert_gba_record(have, want)
+    assert slam.metrics[-1] == {**ref.metrics[-1], **have}
+    assert "gba_cost0" not in ref.metrics[-1] and ref.n_global_ba == 0
+    assert slam.n_global_ba == 1 and slam.sync.count > syncs
+    for k in ("kf_pose", "pt_xyz"):
+        np.testing.assert_allclose(getattr(slam.map, k).numpy(),
+                                   np.asarray(getattr(jax_slam.map, k)),
+                                   atol=GBA_ATOL, err_msg=k)
+    np.testing.assert_allclose(slam.track.pose_cw.numpy(),
+                               np.asarray(jax_slam.track.pose_cw), atol=GBA_ATOL)
+    np.testing.assert_array_equal(slam.track.velocity.numpy(),
+                                  [1, 0, 0, 0, 0, 0, 0])
+
+
+def test_loop_closure_runs_global_ba_when_asked(closure):
+    """With ``loop.run_global_ba`` set, ``_close_loop`` runs global BA once
+    after the correction: ``n_global_ba`` counts it, the last metric record
+    gets its ``gba_*`` keys, and the map is the JAX global BA of JAX's
+    corrected map (cost0 to rtol 1e-4, as the two corrected maps differ by
+    up to 1e-4; cost1 to rtol 1e-3; poses and points within 1e-4)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from boslam_tpu.mapping.map_state import MapState as JaxMapState
+    from boslam_tpu.solvers.global_ba import global_bundle_adjustment
+
+    cfg_j, cfg_t = tp.configs(CLOSURE)
+    cfg_t = cfg_t.replace(loop=dataclasses.replace(cfg_t.loop,
+                                                   run_global_ba=True))
+    _, c = closure
+    slam, recs = _replay_closure(cfg_t, c["snap"])
+    assert slam.n_loops_closed == c["snap"]["loops"] + 1
+    assert slam.n_global_ba == 1
+    have = {k: v for k, v in slam.metrics[-1].items() if k.startswith("gba_")}
+    st = convert.map_state_from_numpy(c["map"], "cpu")
+    jax_map = JaxMapState(**{k: jnp.asarray(v) for k, v in c["map"].items()})
+    want_map, stats = global_bundle_adjustment(
+        cfg_j, jax_map, lm_iters=cfg_j.loop.global_ba_iters,
+        cg_iters=cfg_j.loop.global_ba_cg_iters)
+    want = {"gba_cost0": float(stats.cost0), "gba_cost1": float(stats.cost1),
+            "gba_edges": int(stats.n_edges), "gba_distributed": False}
+    _assert_gba_record(have, want, cost0_rtol=1e-4)
+    for k in ("kf_pose", "pt_xyz"):
+        np.testing.assert_allclose(getattr(slam.map, k).numpy(),
+                                   np.asarray(getattr(want_map, k)),
+                                   atol=1e-4, err_msg=k)
+    assert not torch.equal(slam.map.kf_pose, st.kf_pose)
 
 
 def _jax_state(kind):

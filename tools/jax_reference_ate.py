@@ -5,16 +5,27 @@ The PyTorch port is held to these numbers: ``chip_smoke.py`` holds its runs
 of ``orbit``, ``kidnap`` and ``loop`` to the constants this tool printed,
 and ``tools/torch_sequence.py`` runs the port on the same frames.  Without
 ``--loops``, ``SlamSystem.MAX_VERIFY = 0`` keeps the host from ever
-verifying a loop; ``--loops`` leaves it at the reference's 4.
+verifying a loop; ``--loops`` leaves it at the reference's 4.  ``--global-ba`` runs one
+``SlamSystem.run_global_ba()`` after the run, as ``main.py --global-ba``
+does after its final flush (without the per-closure hook, so the events
+stay the run's own).
 
     JAX_PLATFORMS=cpu python tools/jax_reference_ate.py
-        [--sequence orbit|hall|kidnap|loop] [--loops] [--seed S] [--frames N]
-        [--out traj.npy]
+        [--sequence orbit|hall|kidnap|loop|survey] [--loops] [--global-ba]
+        [--seed S] [--frames N] [--out traj.npy]
+    JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --ba-problem
 
 Prints one JSON line: ATE (m), keyframes, points, lost frames,
 keyframe-event frame indices, the frames with a relocalization attempt and
 with a success, the path each attempt took (``bow`` once the vocabulary is
-trained, else ``global``), and the loops closed.
+trained, else ``global``), the loops closed, and with ``--global-ba`` the
+ATE after global BA, its costs and its edge count.
+
+``--ba-problem`` runs instead the bench's synthetic global-BA problem
+(``bench.py:bench_global_ba``: ``synthetic_ba_problem`` at rng seed 0, 256
+keyframes, 50000 points, 512 observations per keyframe; 6 LM and 40 CG
+iterations) and prints its edges, landmarks, costs and largest pose error
+against ground truth.
 """
 
 from __future__ import annotations
@@ -45,7 +56,14 @@ def main() -> None:
                     help="verify and close loops (MAX_VERIFY stays 4)")
     ap.add_argument("--seed", type=int, default=0,
                     help="the engine's seed (its RANSAC draws)")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="run global BA once after the run")
+    ap.add_argument("--ba-problem", action="store_true",
+                    help="run the bench's synthetic global-BA problem")
     args = ap.parse_args()
+    if args.ba_problem:
+        ba_problem()
+        return
 
     import jax.numpy as jnp
 
@@ -68,6 +86,17 @@ def main() -> None:
     _, est = slam.trajectory()
     rmse, _ = align.ate_rmse(jnp.asarray(est[:, 4:]),
                              jnp.asarray(traj.poses_twc[:, 4:]))
+    gba = {}
+    if args.global_ba:
+        t1 = time.perf_counter()
+        rec = slam.run_global_ba()
+        cpu_s = time.perf_counter() - t1
+        _, est = slam.trajectory()
+        after, _ = align.ate_rmse(jnp.asarray(est[:, 4:]),
+                                  jnp.asarray(traj.poses_twc[:, 4:]))
+        gba = dict(ate_after_global_ba_m=float(after),
+                   gba_cost0=rec["gba_cost0"], gba_cost1=rec["gba_cost1"],
+                   gba_edges=rec["gba_edges"], gba_cpu_seconds=cpu_s)
     if args.out:
         np.save(args.out, est)
     kf_frames = [i for i, m in enumerate(slam.metrics)
@@ -92,7 +121,37 @@ def main() -> None:
         "loop_verified": [(i, m["loop_candidate"], m["loop_inliers"])
                           for i, m in enumerate(slam.metrics)
                           if "loop_inliers" in m],
+        **gba,
         "seconds": time.perf_counter() - t0,
+    }))
+
+
+def ba_problem() -> None:
+    """The bench's 50k-landmark global-BA problem (``bench.py:786-830``)."""
+    import jax.numpy as jnp
+
+    from boslam_tpu.config import MapConfig, OrbConfig, SlamConfig
+    from boslam_tpu.geometry import se3
+    from boslam_tpu.io.synthetic import synthetic_ba_problem
+    from boslam_tpu.solvers.global_ba import global_bundle_adjustment
+
+    cfg = SlamConfig(map=MapConfig(max_keyframes=256, max_points=65536),
+                     orb=OrbConfig(n_features=512))
+    st, gt_poses, _ = synthetic_ba_problem(
+        cfg, np.random.default_rng(0), n_kf=256, n_pts=50000, obs_per_kf=512)
+    t0 = time.perf_counter()
+    st2, stats = global_bundle_adjustment(cfg, st, lm_iters=6, cg_iters=40)
+    _, terr0 = se3.pose_distance(st.kf_pose[:256], gt_poses)
+    _, terr = se3.pose_distance(st2.kf_pose[:256], gt_poses)
+    print(json.dumps({
+        "problem": "synthetic_ba_problem(seed 0, 256 kf, 50000 pts, 512 obs)",
+        "n_edges": int(stats.n_edges),
+        "n_landmarks": int(jnp.sum(st.pt_valid)),
+        "cost0": float(stats.cost0),
+        "cost1": float(stats.cost1),
+        "max_pose_err_before_m": float(jnp.max(terr0)),
+        "max_pose_err_m": float(jnp.max(terr)),
+        "cpu_seconds": time.perf_counter() - t0,
     }))
 
 

@@ -22,6 +22,12 @@ other.
 * ``loop``: the first 320 frames of ``hall``.  With loops on, the JAX
   reference closes one loop there (at the keyframe of frame 291, verified
   one flush late).
+* ``survey``: the bench's engine-built global-BA map
+  (``bench.py:bench_tracked_global_ba``): a 400-frame survey of a room at
+  scale 3.0 with the wide-FOV VGA camera (depth range 30 m), 1024
+  features, a 256-keyframe / 65536-point map that culls no keyframe as
+  redundant, a keyframe at least every 6 frames, 1% depth noise.  The
+  bench runs it with loops on, then one global BA.
 """
 
 from __future__ import annotations
@@ -53,6 +59,20 @@ SEQUENCES = {
                     dict(n_frames=120, radius=0.6, yaw_amplitude=0.3)),
         render=dict(depth_noise=0.01, seed=0),
         blank=(8, 9, 70, 71),
+    ),
+    "survey": dict(
+        cfg=dict(
+            camera=dict(fx=260.0, fy=260.0, cx=319.5, cy=239.5,
+                        depth_max=30.0),
+            orb=dict(n_features=1024),
+            map=dict(max_keyframes=256, max_points=65536,
+                     kf_cull_redundancy=2.0),
+            loop=dict(min_gap_kf=8, consistency=2),
+            tracker=dict(kf_min_interval=2, kf_max_interval=6,
+                         kf_tracked_ratio=0.8),
+        ),
+        trajectory=("survey_trajectory", dict(n_frames=400, span=6.0)),
+        render=dict(depth_noise=0.01, seed=5, room_scale=3.0),
     ),
 }
 # The closed orbit of tests/test_slam_e2e.py's loop test at full width
