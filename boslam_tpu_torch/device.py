@@ -12,12 +12,23 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a card); anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "boslam_tpu_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch path"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` -> ``cuda``; anything else as given.  A CUDA device raises
+    without a card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "boslam_tpu_torch runs on a CUDA device and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return device
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same one (``cuda`` is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)

@@ -5,13 +5,15 @@ depth frames by nearest timestamp (<= ``max_dt``), yields
 ``(timestamp, rgb[H,W,3] u8, depth[H,W] f32 metres)`` and writes TUM-format
 trajectories (``timestamp tx ty tz qx qy qz qw``).
 
-Host-side, numpy-only (plus optional cv2/PIL for PNG decode); never on the
-device hot path.
+Host-side, numpy-only: PNGs decode with the native runtime
+(``runtime/native.py``) or with cv2, whichever ``sequence`` is told; never
+on the device hot path.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -77,14 +79,57 @@ def _imread_gray_depth(rgb_path: str, depth_path: str, depth_factor: float):
     return rgb, depth
 
 
+def png_size(path: str) -> Tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk, without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if len(head) < 24 or head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def use_native(native: Optional[bool]) -> bool:
+    """``native`` as ``sequence`` takes it: None = the native runtime when it
+    builds and loads, True = required (raises when unavailable), False =
+    cv2."""
+    if native is False:
+        return False
+    from boslam_tpu_torch.runtime import native as native_mod
+
+    ok = native_mod.available()
+    if native and not ok:
+        raise RuntimeError("native runtime requested but unavailable")
+    return ok
+
+
+def native_frames(rgb_paths, depth_paths, depth_factor: float):
+    """(gray f32 [H,W], depth f32 metres) per frame pair from the native
+    prefetching decoder; the geometry comes from the first PNG's header."""
+    from boslam_tpu_torch.runtime.native import NativeLoader
+
+    w, h = png_size(rgb_paths[0])
+    loader = NativeLoader(rgb_paths, depth_paths, w, h, depth_factor)
+    try:
+        yield from loader
+    finally:
+        loader.close()
+
+
 def sequence(
     root: str,
     depth_factor: float = 5000.0,
     max_dt: float = 0.02,
     limit: Optional[int] = None,
+    native: Optional[bool] = False,
 ) -> Iterator[Tuple[float, np.ndarray, np.ndarray]]:
-    """Iterate (timestamp, rgb u8 [H,W,3], depth f32 metres [H,W]), decoded
-    with cv2."""
+    """Iterate (timestamp, image, depth f32 metres [H,W]).
+
+    ``native`` selects the C++ prefetching decoder (``runtime/native.py``),
+    whose workers decode PNGs ahead of the tracking loop: None = auto (use
+    it when the library builds and loads), True = required (raises when it
+    is unavailable), False = cv2.  The native path yields BT.601 gray f32
+    [H,W] images, the cv2 path rgb u8 [H,W,3]; ``SlamSystem.feed`` takes
+    both."""
     rgb_list = _read_list(os.path.join(root, "rgb.txt"))
     depth_list = _read_list(os.path.join(root, "depth.txt"))
     ts_r = np.array([t for t, _ in rgb_list])
@@ -92,6 +137,15 @@ def sequence(
     pairs = associate(ts_r, ts_d, max_dt)
     if limit is not None:
         pairs = pairs[:limit]
+    if use_native(native) and pairs:
+        decoded = native_frames(
+            [os.path.join(root, rgb_list[i][1]) for i, _ in pairs],
+            [os.path.join(root, depth_list[j][1]) for _, j in pairs],
+            depth_factor,
+        )
+        for (i, _), (gray, depth) in zip(pairs, decoded):
+            yield rgb_list[i][0], gray, depth
+        return
     for i, j in pairs:
         rgb, depth = _imread_gray_depth(
             os.path.join(root, rgb_list[i][1]),

@@ -1,19 +1,27 @@
-"""CLI: run the PyTorch port on a TUM RGBD sequence or the synthetic fixture.
+"""CLI: run the PyTorch port on a TUM or ICL-NUIM RGBD sequence or the
+synthetic fixture.
 
 Examples:
     python -m boslam_tpu_torch.main --synthetic 120 --out traj.txt
     python -m boslam_tpu_torch.main --synthetic 120 --global-ba
     python -m boslam_tpu_torch.main --tum /data/rgbd_dataset_freiburg1_xyz \
-        --camera fr1 --out traj.txt
+        --camera fr1 --out traj.txt --metrics run.jsonl
+    python -m boslam_tpu_torch.main --synthetic 60 --async-mapping \
+        --mapping-device 0 --checkpoint-every 5 --checkpoint-dir ckpt
+    python -m boslam_tpu_torch.main --synthetic 60 --resume ckpt
+        (goes on from the frame after the checkpoint's last)
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
-Prints one JSON line with the run's counts and, when groundtruth exists, its
-ATE.
+``--viz``, ``--metrics-tb`` and ``--config`` need matplotlib, tensorboard
+and PyYAML, which the rest of the port does without.  Prints one JSON line:
+the summary of the run's metric records, its counts and, when groundtruth
+exists, its ATE.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 
@@ -23,28 +31,71 @@ import numpy as np
 def main() -> None:
     ap = argparse.ArgumentParser(description="boslam_tpu_torch RGBD SLAM")
     ap.add_argument("--tum", type=str, help="TUM sequence directory")
+    ap.add_argument("--icl", type=str, help="ICL-NUIM sequence directory")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="run N synthetic frames instead of a dataset")
-    ap.add_argument("--camera", choices=["fr1", "fr2", "fr3"], default="fr1")
+    ap.add_argument("--camera", choices=["fr1", "fr2", "fr3", "icl"],
+                    default="fr1")
+    ap.add_argument("--config", type=str, default=None,
+                    help="YAML config file; sections override the --camera "
+                         "preset (see SlamConfig.from_yaml; needs PyYAML)")
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--out", type=str, default="trajectory.txt")
+    ap.add_argument("--metrics", type=str, default=None,
+                    help="write the per-frame metric records to this JSONL")
+    ap.add_argument("--metrics-tb", type=str, default=None,
+                    help="TensorBoard logdir: mirror the per-frame metric "
+                         "records as scalars (needs tensorboard)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save engine state every N keyframes")
+    ap.add_argument("--checkpoint-dir", type=str, default="ckpt")
+    ap.add_argument("--resume", type=str, default=None,
+                    help="checkpoint directory to resume from")
+    ap.add_argument("--profile", type=str, default=None,
+                    help="torch.profiler trace logdir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: cuda, which must exist)")
     ap.add_argument("--global-ba", action="store_true",
                     help="run full-map BA after loop closures AND at exit")
+    ap.add_argument("--viz", type=str, default=None,
+                    help="render the final map + trajectory to this PNG "
+                         "(needs matplotlib)")
+    ap.add_argument("--async-mapping", action="store_true",
+                    help="defer local BA to the flushes (the reference's "
+                         "mapping thread); keyframe frames pay only "
+                         "insert/fuse/cull")
+    ap.add_argument("--mapping-device", type=int, default=None,
+                    help="CUDA device index of the deferred solves (the "
+                         "working card: a second CUDA stream); implies "
+                         "--async-mapping")
+    ap.add_argument("--no-native-loader", action="store_true",
+                    help="decode PNGs with cv2 (default: the C++ "
+                         "prefetching decoder when it builds and loads)")
     args = ap.parse_args()
 
     import torch
 
-    from boslam_tpu_torch.config import SlamConfig, TUM_FR1, TUM_FR2, TUM_FR3
+    from boslam_tpu_torch.config import (
+        ICL_NUIM, SlamConfig, TUM_FR1, TUM_FR2, TUM_FR3,
+    )
     from boslam_tpu_torch.geometry import align
+    from boslam_tpu_torch.io import icl_nuim
     from boslam_tpu_torch.io import synthetic as synth
     from boslam_tpu_torch.io import tum
     from boslam_tpu_torch.slam import SlamSystem
+    from boslam_tpu_torch.utils import checkpoint as ckpt
+    from boslam_tpu_torch.utils.metrics import (
+        dump_metrics, profile_trace, summarize,
+    )
 
-    cam = {"fr1": TUM_FR1, "fr2": TUM_FR2, "fr3": TUM_FR3}[args.camera]
+    if args.icl:
+        args.camera = "icl"
+    cam = {"fr1": TUM_FR1, "fr2": TUM_FR2, "fr3": TUM_FR3,
+           "icl": ICL_NUIM}[args.camera]
     cfg = SlamConfig(camera=cam)
+    if args.config:
+        cfg = SlamConfig.from_yaml(args.config, base=cfg)
     if args.global_ba:
         import dataclasses
 
@@ -52,6 +103,7 @@ def main() -> None:
             loop=dataclasses.replace(cfg.loop, run_global_ba=True)
         )
 
+    native = False if args.no_native_loader else None
     gt = None
     if args.synthetic:
         traj = synth.orbit_trajectory(args.synthetic, radius=0.6, loop=True)
@@ -59,24 +111,53 @@ def main() -> None:
         gt = (traj.timestamps, traj.poses_twc)
     elif args.tum:
         frames = tum.sequence(args.tum, cfg.camera.depth_factor,
-                              limit=args.limit)
+                              limit=args.limit, native=native)
         try:
             gt = tum.read_groundtruth(f"{args.tum}/groundtruth.txt")
         except OSError:
             pass
+    elif args.icl:
+        frames = icl_nuim.sequence(args.icl, cfg.camera.depth_factor,
+                                   limit=args.limit, native=native)
+        try:
+            gt = icl_nuim.read_groundtruth(args.icl)
+        except OSError:
+            pass
     else:
-        ap.error("need --tum or --synthetic")
+        ap.error("need --tum, --icl or --synthetic")
 
-    slam = SlamSystem(cfg, seed=args.seed, device=args.device)
-    for i, (ts, rgb, depth) in enumerate(frames):
-        slam.process_frame(ts, rgb, depth)
-        m = slam.metrics[-1]
-        if i % 25 == 0:
-            print(
-                f"[{i}] kf={slam.n_keyframes} pts={slam.n_points} "
-                f"inl={m.get('n_inliers', 0)} {m.get('event', '')}",
-                file=sys.stderr,
-            )
+    slam = SlamSystem(cfg, seed=args.seed, device=args.device,
+                      async_mapping=args.async_mapping,
+                      mapping_device=args.mapping_device)
+    n_done = 0
+    if args.resume:
+        ckpt.restore(args.resume, slam)
+        # The run goes on where the snapshot left off: the frames it holds
+        # are not fed again.
+        n_done = len(slam.timestamps)
+        frames = itertools.islice(frames, n_done, None)
+        print(f"resumed from {args.resume}: {slam.n_keyframes} keyframes, "
+              f"{n_done} frames", file=sys.stderr)
+
+    last_ckpt_kf = slam.n_keyframes
+    with profile_trace(args.profile) as step:
+        for i, (ts, rgb, depth) in enumerate(frames, start=n_done):
+            slam.process_frame(ts, rgb, depth)
+            step()
+            m = slam.metrics[-1]
+            if i % 25 == 0:
+                print(
+                    f"[{i}] kf={slam.n_keyframes} pts={slam.n_points} "
+                    f"inl={m.get('n_inliers', 0)} {m.get('event', '')}",
+                    file=sys.stderr,
+                )
+            if (
+                args.checkpoint_every
+                and slam.n_keyframes >= last_ckpt_kf + args.checkpoint_every
+            ):
+                ckpt.save(args.checkpoint_dir, slam)
+                last_ckpt_kf = slam.n_keyframes
+
     if args.global_ba:
         slam.flush()
         rec = slam.run_global_ba()
@@ -86,16 +167,18 @@ def main() -> None:
     tum.save_trajectory(args.out, ts_arr, poses)
     print(f"wrote {len(ts_arr)} poses to {args.out}", file=sys.stderr)
 
-    summary = {
-        "device": str(slam.device),
-        "frames": len(ts_arr),
-        "keyframes": slam.n_keyframes,
-        "points": slam.n_points,
-        "lost": sum(1 for m in slam.metrics if m.get("lost", False)),
-        "host_syncs": slam.sync.count,
-    }
+    summary = summarize(slam.metrics)
+    summary.update(
+        device=str(slam.device),
+        frames=len(ts_arr),
+        keyframes=slam.n_keyframes,
+        points=slam.n_points,
+        lost=sum(1 for m in slam.metrics if m.get("lost", False)),
+        host_syncs=slam.sync.count,
+    )
     if gt is not None:
         if args.synthetic:
+            # Over the overlap, should a resume have been given another N.
             n = min(len(ts_arr), len(gt[1]))
             gt_assoc, mask, poses_eval = gt[1][:n], np.ones(n, bool), poses[:n]
         else:
@@ -108,6 +191,24 @@ def main() -> None:
         )
         summary["ate_rmse_m"] = float(rmse)
     print(json.dumps(summary))
+
+    if args.metrics:
+        dump_metrics(args.metrics, slam.metrics)
+    if args.metrics_tb:
+        from boslam_tpu_torch.utils.metrics import export_tensorboard
+
+        export_tensorboard(args.metrics_tb, slam.metrics)
+        print(f"wrote TensorBoard scalars to {args.metrics_tb}",
+              file=sys.stderr)
+    if args.viz:
+        from boslam_tpu_torch.viz import render_map
+
+        render_map(
+            slam.map, trajectory=poses,
+            groundtruth=gt[1] if (gt is not None and args.synthetic) else None,
+            out_path=args.viz,
+        )
+        print(f"wrote map view to {args.viz}", file=sys.stderr)
 
 
 if __name__ == "__main__":

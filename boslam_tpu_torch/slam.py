@@ -16,20 +16,30 @@ device->host contract, field for field.  ``flush`` drains the rows and runs
 the host's rare events: vocabulary training and refresh, loop verification
 (dispatched at one flush, resolved at the next), loop correction and,
 after it when ``loop.run_global_ba`` is set, global bundle adjustment
-(``run_global_ba``, also callable on its own).  Asynchronous mapping is not
-ported yet.
+(``run_global_ba``, also callable on its own).
+
+Asynchronous mapping (``SlamSystem(async_mapping=True)`` or
+``mapping_device=``) is the reference's local-mapping thread: the keyframe
+event pays insert, fuse and cull only, the flush dispatches one deferred
+local-BA solve per keyframe event (``deferred_local_ba``), and the next
+flush merges the results under per-entry identity guards
+(``merge_local_ba``).  ``mapping_device`` naming the working card runs the
+solves on a second CUDA stream of it; naming another device, on that
+device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
 from boslam_tpu_torch.config import SlamConfig
-from boslam_tpu_torch.device import resolve_device
+from boslam_tpu_torch.device import resolve_device, same_device
 from boslam_tpu_torch.features.frontend import extract_features
 from boslam_tpu_torch.geometry import se3
 from boslam_tpu_torch.loopclosure import (
@@ -37,9 +47,12 @@ from boslam_tpu_torch.loopclosure import (
     verify_loops_batch,
 )
 from boslam_tpu_torch.mapping import map_ops
-from boslam_tpu_torch.mapping.map_state import empty_map
+from boslam_tpu_torch.mapping.map_state import empty_map, latest_kf_slot
 from boslam_tpu_torch.solvers.global_ba import global_bundle_adjustment
-from boslam_tpu_torch.solvers.local_ba import local_bundle_adjustment
+from boslam_tpu_torch.solvers.local_ba import (
+    DeferredBaGraph, deferred_local_ba, local_bundle_adjustment,
+    merge_local_ba,
+)
 from boslam_tpu_torch.solvers.pose_graph import close_loop_update
 from boslam_tpu_torch.tracking.tracker import (
     ST_LOST, ST_OK, ST_UNINIT, HostSync, init_track_state, relocalize,
@@ -128,12 +141,15 @@ OUT_DIM = 42
 
 
 def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
-                    img, depth_u16, sync: HostSync | None = None):
+                    img, depth_u16, sync: HostSync | None = None,
+                    inline_ba: bool = True):
     """Process one RGBD frame on its device.
 
     ``img`` is the u8 gray wire image and ``depth_u16`` the u16 wire depth
     (at ``cfg.camera.depth_factor``), both tensors on the working device;
-    ``key`` is the ``torch.Generator`` relocalization draws from.
+    ``key`` is the ``torch.Generator`` relocalization draws from.  Without
+    ``inline_ba`` the keyframe event skips local BA and its row carries
+    zero BA stats (the host dispatches the solve at the flush).
     Returns (map', loop', track', row[OUT_DIM] f32).
     """
     sync = HostSync() if sync is None else sync
@@ -182,7 +198,11 @@ def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
             st = map_ops.fuse_new_keyframe(cfg, st, kf_id)
             st = map_ops.refresh_point_model(cfg, st, kf_id)
             st = map_ops.cull_points(cfg, st, update_covis=False)
-            st, ba = local_bundle_adjustment(cfg, st, kf_id)
+            if inline_ba:
+                st, ba = local_bundle_adjustment(cfg, st, kf_id)
+                row[O_BA0] = ba.cost0
+                row[O_BA1] = ba.cost1
+                row[O_BAE] = ba.n_edges.to(torch.float32)
             # One cull record per row: a saturation eviction is reported and
             # the redundancy cull skipped this event.
             if sync.flag(evict_info[0] >= 0):
@@ -199,9 +219,6 @@ def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
             )
             row[O_KF] = 1.0
             row[O_KFID] = kf_id.to(torch.float32)
-            row[O_BA0] = ba.cost0
-            row[O_BA1] = ba.cost1
-            row[O_BAE] = ba.n_edges.to(torch.float32)
             row[O_LCAND] = det.candidate.to(torch.float32)
             row[O_LSCORE] = det.score
             row[O_LCONS] = det.consistent.to(torch.float32)
@@ -230,14 +247,63 @@ def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
     return map_state, loop_state, track, row
 
 
+def _merge_ba_and_reanchor(cfg: SlamConfig, map_state, track, res):
+    """Apply one deferred local-BA result and re-attach the tracked pose to
+    its reference keyframe's refined pose (the inline path gets this by
+    taking the post-BA keyframe pose)."""
+    ref = latest_kf_slot(map_state)
+    t_cur_ref = se3.pose_compose(
+        track.pose_cw, se3.pose_inv(at(map_state.kf_pose, ref))
+    )
+    new_map = merge_local_ba(cfg, map_state, res)
+    track = track._replace(
+        pose_cw=se3.pose_compose(t_cur_ref, at(new_map.kf_pose, ref))
+    )
+    return new_map, track
+
+
+def _to_device(state, device):
+    """A NamedTuple of tensors (nested ones too) on ``device``."""
+    return type(state)(*(
+        _to_device(v, device) if isinstance(v, tuple) else v.to(device)
+        for v in state
+    ))
+
+
+def _record_stream(state, stream) -> None:
+    """``Tensor.record_stream`` on every tensor of a (nested) NamedTuple."""
+    for v in state:
+        if isinstance(v, tuple):
+            _record_stream(v, stream)
+        else:
+            v.record_stream(stream)
+
+
+class _PendingBa(NamedTuple):
+    """Deferred local-BA solves in flight between two flushes."""
+
+    solves: list        # [(DeferredBaResult, stats [3] f32, metric rec)]
+    loops0: int         # n_loops_closed at dispatch
+    gba0: int           # n_global_ba at dispatch
+    done: object        # torch.cuda.Event after the last solve (None on CPU)
+
+
 class SlamSystem:
     """Sequential RGBD SLAM engine over one camera stream.
 
     ``feed()`` runs a frame and queues its packed row; ``flush()`` drains
     the rows in one readback and runs the host events (vocabulary training,
-    loop verification and correction).  ``process_frame()`` is the
-    synchronous wrapper (feed + flush).  The engine runs on ``cuda`` unless
-    ``device`` says otherwise; without a card it raises.
+    loop verification and correction, and in async mode the deferred local
+    BA).  ``process_frame()`` is the synchronous wrapper (feed + flush).
+    The engine runs on ``cuda`` unless ``device`` says otherwise; without a
+    card it raises.
+
+    ``async_mapping``: local BA leaves the keyframe event; the flush
+    dispatches the solves, the next flush merges them.  ``mapping_device``
+    (implies ``async_mapping``; an int is a CUDA device index) places the
+    solves: on the working card, a second CUDA stream of it; on another
+    device, the map is copied there and the results back; on the CPU
+    engine, ``"cpu"`` is the same-device path.
     """
 
     # Max consistent candidates verified per drain; extras are dropped
@@ -245,10 +311,21 @@ class SlamSystem:
     MAX_VERIFY = 4
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, chunk: int = 16,
-                 device=None):
+                 device=None, async_mapping: bool = False,
+                 mapping_device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
+        self.async_mapping = bool(async_mapping) or mapping_device is not None
+        # Where the deferred solves run: None is the tracking stream.
+        self.mapping_device = self.device
+        self._mapping_stream = None
+        if mapping_device is not None:
+            if isinstance(mapping_device, int):
+                mapping_device = f"cuda:{mapping_device}"
+            self.mapping_device = resolve_device(mapping_device)
+            if self.mapping_device.type == "cuda":
+                self._mapping_stream = torch.cuda.Stream(self.mapping_device)
         self.map = empty_map(cfg, self.device)
         self.loop = empty_loop_state(cfg, self.device)
         self.track = init_track_state(self.device)
@@ -266,6 +343,10 @@ class SlamSystem:
         self.n_loops_closed = 0
         self.n_global_ba = 0
         self._vocab_trained_at = -1  # n_kf at last vocabulary (re)train
+        # In-flight deferred local BA (async mapping), merged at the next
+        # flush.
+        self._pending_ba: _PendingBa | None = None
+        self._ba_graph: DeferredBaGraph | None = None  # captured at first use
         # In-flight loop verification batch (resolved at the NEXT flush) and
         # a host mirror of each keyframe slot's current seq (from the packed
         # rows: inserts and culls), which guards stale closures.
@@ -299,6 +380,7 @@ class SlamSystem:
         self.map, self.loop, self.track, row = frame_step_core(
             self.cfg, self.map, self.loop, self.track, self.generator,
             self._upload(img), self._upload(depth), self.sync,
+            not self.async_mapping,
         )
         self._pending_rows.append(row)
         self._pending_ts.append(ts)
@@ -310,14 +392,19 @@ class SlamSystem:
     def flush(self) -> None:
         """Drain pending frames: ONE packed readback, then host events."""
         if not self._pending_rows:
-            # End of stream: close the last in-flight loop.
+            # End of stream: land the last solves, close the last loop.
+            self._merge_pending_ba()
             self._resolve_pending_verify()
             return
         rows = torch.stack(self._pending_rows).cpu().numpy()
         ts_list, t0_list = self._pending_ts, self._pending_t0
         self._pending_rows, self._pending_ts, self._pending_t0 = [], [], []
         t_drain = time.perf_counter()
+        # Land the previous flush's deferred BA before anything reads poses
+        # in this drain (loop verification must see the refined window).
+        self._merge_pending_ba()
         loop_requests = []  # (kf_id, cand, rec): one closure per drain
+        kf_recs = []        # this drain's keyframe events (async mapping)
         for ts, t0, r in zip(ts_list, t0_list, rows):
             self.timestamps.append(ts)
             self.poses_twc.append(r[O_POSE0:O_POSE0 + 7].copy())
@@ -356,6 +443,8 @@ class SlamSystem:
                     ba_cost1=float(r[O_BA1]),
                     ba_edges=int(r[O_BAE]),
                 )
+                if kf_id > 0:
+                    kf_recs.append((kf_id, rec))
                 if r[O_LCAND] >= 0:
                     rec["loop_candidate"] = int(r[O_LCAND])
                     rec["loop_score"] = float(r[O_LSCORE])
@@ -379,6 +468,87 @@ class SlamSystem:
         # closure), then dispatch this drain's candidates.
         self._resolve_pending_verify()
         self._dispatch_verify(loop_requests)
+        # The deferred solves go last, so that they solve on the
+        # loop-corrected map.
+        if self.async_mapping and kf_recs:
+            self._dispatch_ba(kf_recs)
+
+    # ------------------------------------------------------------------
+    def _dispatch_ba(self, kf_recs) -> None:
+        """One deferred local-BA solve per keyframe event of this drain,
+        chained through a shadow map so that each solve sees its
+        predecessor's refinement; the results land at the next flush while
+        the next chunk's frames track without waiting for them.  On a card
+        the solve replays a CUDA graph (``DeferredBaGraph``), on the CPU it
+        runs eagerly."""
+        cfg, mdev, stream = self.cfg, self.mapping_device, self._mapping_stream
+        snapshot = self.map
+        if stream is not None:
+            # After the flush's last write to the map (loop correction,
+            # vocabulary training); the snapshot stays referenced in
+            # ``_pending_ba`` until the merge, and the allocator must not
+            # hand its memory to the tracking stream while the mapping
+            # stream may still read it.
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            _record_stream(snapshot, stream)
+        ctx = torch.cuda.stream(stream) if stream is not None else \
+            contextlib.nullcontext()
+        solves = []
+        with ctx:
+            shadow = snapshot if same_device(mdev, self.device) else \
+                _to_device(snapshot, mdev)
+            if mdev.type == "cuda" and self._ba_graph is None:
+                self._ba_graph = DeferredBaGraph(cfg, shadow)
+            solve = self._ba_graph or functools.partial(deferred_local_ba, cfg)
+            for kf_id, rec in kf_recs:
+                res = solve(shadow, torch.full((), kf_id, dtype=torch.int32,
+                                               device=mdev))
+                shadow = merge_local_ba(cfg, shadow, res)
+                st = torch.stack([res.stats.cost0, res.stats.cost1,
+                                  res.stats.n_edges.to(torch.float32)])
+                if mdev.type == "cuda":
+                    # The reference's copy_to_host_async: read at the merge.
+                    host = torch.empty(3, pin_memory=True)
+                    host.copy_(st, non_blocking=True)
+                    st = host
+                solves.append((res, st, rec))
+            done = None
+            if mdev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+        self._pending_ba = _PendingBa(solves, self.n_loops_closed,
+                                      self.n_global_ba, done)
+
+    def _merge_pending_ba(self) -> None:
+        """Land the in-flight deferred local BA into the current map.
+
+        Dropped wholesale if a loop closure or global BA ran since the
+        dispatch: those moved the whole trajectory, and stale local poses
+        would partly revert the correction.  Per-entry staleness (culled or
+        reused slots) is left to ``merge_local_ba``'s guards."""
+        if self._pending_ba is None:
+            return
+        pend, self._pending_ba = self._pending_ba, None
+        if self.n_loops_closed != pend.loops0 or self.n_global_ba != pend.gba0:
+            for _, _, rec in pend.solves:
+                rec["ba_dropped"] = True
+            return
+        side_stream = self._mapping_stream is not None and same_device(
+            self.mapping_device, self.device)
+        if pend.done is not None:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).wait_event(pend.done)
+            # The stats' host copies have landed once the solves are done.
+            pend.done.synchronize()
+        for res, st, rec in pend.solves:
+            res = _to_device(res, self.device)
+            if side_stream:
+                # Allocated on the mapping stream, read on this one.
+                _record_stream(res, torch.cuda.current_stream(self.device))
+            self.map, self.track = _merge_ba_and_reanchor(
+                self.cfg, self.map, self.track, res)
+            cost0, cost1, n_edges = st.tolist()
+            rec.update(ba_cost0=cost0, ba_cost1=cost1, ba_edges=int(n_edges))
 
     # ------------------------------------------------------------------
     def _dispatch_verify(self, loop_requests) -> None:
@@ -506,7 +676,8 @@ class SlamSystem:
         cull chain), so loop corrections made after a frame passed still
         correct it."""
         self.flush()
-        # A flush may have just dispatched a verification: land it first.
+        # A flush may have just dispatched these: land them first.
+        self._merge_pending_ba()
         self._resolve_pending_verify()
         ts = np.asarray(self.timestamps)
         raw = np.stack(self.poses_twc)
@@ -533,9 +704,11 @@ def run_sequence(
     progress: bool = False,
     chunk: int = 16,
     device=None,
+    async_mapping: bool = False,
 ) -> SlamSystem:
     """Run the engine over an iterable of (ts, rgb, depth)."""
-    slam = SlamSystem(cfg, seed=seed, chunk=chunk, device=device)
+    slam = SlamSystem(cfg, seed=seed, chunk=chunk, device=device,
+                      async_mapping=async_mapping)
     for i, (ts, rgb, depth) in enumerate(frames):
         slam.feed(ts, rgb, depth)
         if progress and i % 25 == 0 and slam.metrics:

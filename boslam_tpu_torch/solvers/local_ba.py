@@ -1,5 +1,8 @@
 """Local bundle adjustment over the covisibility window, Schur-complement
-damped Gauss-Newton (``boslam_tpu.solvers.local_ba``, inline mode).
+damped Gauss-Newton (``boslam_tpu.solvers.local_ba``): inline
+(``local_bundle_adjustment``, solve and write back) or deferred
+(``deferred_local_ba`` solves on a snapshot, ``merge_local_ba`` lands the
+result later under per-entry identity guards).
 
 Static window: N_OPT optimized + N_FIX fixed cameras and a compacted active
 landmark set of MAX_LOCAL points.  The edge set is one possible edge per
@@ -21,7 +24,9 @@ from boslam_tpu_torch.geometry import se3
 from boslam_tpu_torch.mapping.map_state import MapState
 from boslam_tpu_torch.solvers import robust as robust_mod
 from boslam_tpu_torch.solvers.ba_core import inv3x3
-from boslam_tpu_torch.utils.tensor_ops import last_writer, nonzero_static, top_k
+from boslam_tpu_torch.utils.tensor_ops import (
+    last_writer, nonzero_static, set_drop, top_k,
+)
 
 
 class LocalBaStats(NamedTuple):
@@ -50,7 +55,10 @@ def _select_window(cfg: SlamConfig, state: MapState, center):
 
     # Fixed ring: most covisible with the window, not already in it.
     in_opt = torch.zeros(K + 1, dtype=torch.bool, device=dev)
-    in_opt[torch.where(opt_mask, opt_ids, K)] = True
+    # index_fill_ takes its value as a kernel argument: an advanced-index
+    # assignment of a Python scalar copies it from the host (a stream
+    # synchronization, and an error under CUDA-graph capture).
+    in_opt.index_fill_(0, torch.where(opt_mask, opt_ids, K), True)
     in_opt = in_opt[:K] | (ar == opt_ids[0])
     ring = torch.sum(state.covis[opt_ids] * opt_mask[:, None], dim=0) * state.kf_valid
     ring = torch.where(in_opt, 0, ring)
@@ -86,7 +94,7 @@ def _build_problem(cfg: SlamConfig, state: MapState, center):
     obs_opt = state.kf_obs_pt[opt_ids]                      # [KO, N]
     obs_opt = torch.where((obs_opt >= 0) & opt_mask[:, None], obs_opt, P)
     active = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    active[obs_opt.reshape(-1).long()] = True
+    active.index_fill_(0, obs_opt.reshape(-1).long(), True)
     active = active[:P] & state.pt_valid
     local_ids = nonzero_static(active, L, P)                # [L] -> global
     slot_used = local_ids < P
@@ -293,3 +301,98 @@ def local_bundle_adjustment(cfg: SlamConfig, state: MapState, center):
     pt_xyz = torch.cat([state.pt_xyz, state.pt_xyz[:1]])
     pt_xyz[torch.where(slot_used, local_ids, P)] = pts
     return state._replace(kf_pose=kf_pose[:K], pt_xyz=pt_xyz[:P]), stats
+
+
+class DeferredBaResult(NamedTuple):
+    """Output of a deferred local-BA solve (the reference's local-mapping
+    thread as a second in-flight computation): optimized poses and points
+    plus the identity guards that let them merge into a map that has
+    advanced since the snapshot.
+
+    ``opt_seq`` is kf_seq at snapshot time (a keyframe slot is reused after
+    a cull, and a changed seq means another keyframe lives there);
+    ``pt_gen`` is pt_first_kf, which identifies a point slot's tenant."""
+
+    opt_ids: torch.Tensor    # [KO] i32 optimized keyframe slots
+    opt_mask: torch.Tensor   # [KO] bool
+    opt_pose: torch.Tensor   # [KO, 7] optimized T_cw
+    opt_seq: torch.Tensor    # [KO] i32 kf_seq guard
+    pt_ids: torch.Tensor     # [L] i64 global point slots (P = unused)
+    pt_used: torch.Tensor    # [L] bool
+    pt_xyz: torch.Tensor     # [L, 3] optimized positions
+    pt_gen: torch.Tensor     # [L] i32 pt_first_kf guard
+    stats: LocalBaStats
+
+
+def deferred_local_ba(cfg: SlamConfig, state: MapState, center):
+    """Solve local BA around ``center`` without writing back; the result
+    merges into the (by then advanced) map through ``merge_local_ba``."""
+    P = state.pt_xyz.shape[0]
+    opt_ids, opt_cam_mask, opt_poses, local_ids, slot_used, pts, stats = (
+        _solve_local_ba(cfg, state, center)
+    )
+    ids_c = torch.clamp(local_ids, 0, P - 1)
+    return DeferredBaResult(
+        opt_ids=opt_ids,
+        opt_mask=opt_cam_mask,
+        opt_pose=opt_poses,
+        opt_seq=state.kf_seq[opt_ids.long()],
+        pt_ids=local_ids,
+        pt_used=slot_used,
+        pt_xyz=pts,
+        pt_gen=state.pt_first_kf[ids_c],
+        stats=stats,
+    )
+
+
+def merge_local_ba(cfg: SlamConfig, state: MapState,
+                   res: DeferredBaResult) -> MapState:
+    """Merge a deferred local-BA result into the current map.
+
+    A keyframe pose lands only if its slot still holds the same keyframe
+    (valid, kf_seq unchanged); a point only if its slot still holds the
+    same point (valid, pt_first_kf unchanged).  Entries culled or reused
+    since the snapshot are skipped."""
+    K = state.kf_pose.shape[0]
+    P = state.pt_xyz.shape[0]
+    kid = res.opt_ids.long()
+    kf_ok = res.opt_mask & state.kf_valid[kid] & (state.kf_seq[kid] == res.opt_seq)
+    kf_pose = set_drop(state.kf_pose, torch.where(kf_ok, kid, K), res.opt_pose)
+    ids_c = torch.clamp(res.pt_ids, 0, P - 1)
+    pt_ok = (res.pt_used & state.pt_valid[ids_c]
+             & (state.pt_first_kf[ids_c] == res.pt_gen))
+    pt_xyz = set_drop(state.pt_xyz, torch.where(pt_ok, res.pt_ids, P), res.pt_xyz)
+    return state._replace(kf_pose=kf_pose, pt_xyz=pt_xyz)
+
+
+class DeferredBaGraph:
+    """``deferred_local_ba`` captured once in a CUDA graph and replayed.
+
+    Eager, the solve enqueues a few thousand small operations, which costs
+    the host tens of ms per keyframe event; a replay costs the copies of
+    the map into the graph's static inputs and one launch.  All shapes are
+    static in ``cfg``, so one capture serves every solve of an engine.
+    Call it on the stream the solves run on (the capture itself runs on a
+    side stream of its own, after a device synchronization)."""
+
+    def __init__(self, cfg: SlamConfig, state: MapState):
+        self.cfg = cfg
+        self.static = MapState(*(t.clone() for t in state))
+        self.center = torch.zeros((), dtype=torch.int32,
+                                  device=state.kf_pose.device)
+        # One eager solve first: it creates the cuBLAS / cuSOLVER handles
+        # and workspaces, which a capture cannot.
+        deferred_local_ba(cfg, self.static, self.center)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = deferred_local_ba(cfg, self.static, self.center)
+
+    def __call__(self, state: MapState, center) -> DeferredBaResult:
+        for dst, src in zip(self.static, state):
+            dst.copy_(src)
+        self.center.copy_(center)
+        self.graph.replay()
+        return DeferredBaResult(
+            *(t.clone() for t in self.out[:-1]),
+            stats=LocalBaStats(*(t.clone() for t in self.out.stats)),
+        )

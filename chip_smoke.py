@@ -41,6 +41,20 @@ Phases, each fatal on failure:
      application's device time beside its bound; (b) ``run_global_ba()``
      on the engine that phase 6 leaves: cost1 <= cost0 and the ATE after it
      within the bound of the JAX reference's ATE after global BA.
+  8. asynchronous local mapping on phase 3's sequence: (a)
+     ``run_sequence(..., async_mapping=True)``: 0 lost frames, the JAX
+     reference's async keyframe events, the ATE within the bound of the
+     reference's async ATE, a landed solve with cost1 <= cost0, no dropped
+     solve, one launch per frame of each frontend kernel; the CUDA graph of
+     the deferred solve held bit-equal to the eager solve on one snapshot;
+     (b) the same run with ``mapping_device=0`` (the solves on a second
+     CUDA stream): the same events and every pose within 1e-6 m of (a); fps
+     after the warm-up, host ms of keyframe frames and of flushes, and host
+     syncs per frame for the inline, async and async+stream runs; (c) the
+     CLI: ``--synthetic 60 --async-mapping --mapping-device 0 --metrics
+     --checkpoint-every 5 --checkpoint-dir --profile``, then ``--resume``
+     from its checkpoint.  The native loader is held on the CPU only: the
+     card's machine has no libpng to build it against.
 
 Prints the ``kernels`` JSON line, the card line and, last, the device JSON.
 Exits non-zero without a result when no CUDA device is visible or the port
@@ -120,6 +134,16 @@ MATCH_CASES = (("reloc", 512, 65536, True), ("window", 512, 65536, False),
 LIVE_SLOTS = 600
 
 N_FRAMES, WARMUP = 120, 10
+
+# Phase 8a: the JAX reference with ``async_mapping=True`` on the sequence of
+# phase 3, ``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py
+# --async-mapping``: 9 keyframes, 554 points, 0 lost frames, 30 keyframe
+# events (every fourth frame).
+JAX_REFERENCE_ASYNC_ATE_M = 0.02101525478065014
+JAX_REFERENCE_ASYNC_KF_EVENTS = 30
+STREAM_POSE_ATOL_M = 1e-6
+# Phase 8c: the CLI's runs.
+CLI_FRAMES, CLI_DIR = 60, os.path.join("build", "smoke_cli")
 FAST_RTOL, FAST_ATOL = 1e-5, 1e-3
 
 
@@ -744,12 +768,261 @@ def check_engine_gba(slam, traj):
     return report
 
 
+def host_clock():
+    """Wrap ``SlamSystem.feed`` and ``flush`` in host clocks (no device
+    synchronization): per frame the ms of its ``feed`` without the flush
+    inside it and its start time, per flush its ms.  Returns (record,
+    restore)."""
+    from boslam_tpu_torch.slam import SlamSystem
+
+    feed0, flush0 = SlamSystem.feed, SlamSystem.flush
+    rec = dict(frame_ms=[], start=[], flush_ms=[])
+    inner = [0.0]
+
+    def feed(self, *a):
+        inner[0] = 0.0
+        t0 = time.perf_counter()
+        feed0(self, *a)
+        rec["frame_ms"].append((time.perf_counter() - t0) * 1e3 - inner[0])
+        rec["start"].append(t0)
+
+    def flush(self):
+        t0 = time.perf_counter()
+        flush0(self)
+        dt = (time.perf_counter() - t0) * 1e3
+        rec["flush_ms"].append(dt)
+        inner[0] += dt
+
+    SlamSystem.feed, SlamSystem.flush = feed, flush
+
+    def restore():
+        SlamSystem.feed, SlamSystem.flush = feed0, flush0
+    return rec, restore
+
+
+def run_mode(cfg, traj, frames, mode, fc):
+    """One run of phase 8 over ``frames``: ``inline`` and ``async`` through
+    ``run_sequence``, ``stream`` as ``SlamSystem(mapping_device=0)`` fed
+    frame by frame.  Returns (engine, report, anchored trajectory)."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.geometry import align
+    from boslam_tpu_torch.slam import SlamSystem, run_sequence
+
+    clock, restore = host_clock()
+    fc.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        if mode == "stream":
+            slam = SlamSystem(cfg, mapping_device=0)
+            for f in frames:
+                slam.feed(*f)
+            slam.flush()
+        else:
+            slam = run_sequence(cfg, frames, async_mapping=mode == "async")
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        restore()
+    launches = dict(fc.LAUNCHES)
+    n = len(frames)
+    _, est = slam.trajectory()
+    rmse, _ = align.ate_rmse(
+        torch.from_numpy(est[:, 4:].astype(np.float32)),
+        torch.from_numpy(traj.poses_twc[:, 4:].astype(np.float32)))
+    m = slam.metrics
+    kf = [i for i, r in enumerate(m) if r.get("event") == "keyframe"]
+    kf_ms = [clock["frame_ms"][i] for i in kf]
+    landed = [r for r in m if r.get("event") == "keyframe"
+              and r["ba_edges"] > 0 and not r.get("ba_dropped")]
+    report = dict(
+        mode=mode, frames=n,
+        fps_after_warmup=(n - WARMUP) / (t_end - clock["start"][WARMUP]),
+        kf_frame_host_ms_median=float(np.median(kf_ms)),
+        kf_frame_host_ms_max=max(kf_ms),
+        other_frame_host_ms_median=float(np.median(
+            [t for i, t in enumerate(clock["frame_ms"]) if i not in kf])),
+        flush_host_ms_median=float(np.median(clock["flush_ms"])),
+        flush_host_ms_max=max(clock["flush_ms"]),
+        flushes=len(clock["flush_ms"]),
+        host_syncs_per_frame=slam.sync.count / n,
+        ate_m=float(rmse), lost=sum(1 for r in m if r["lost"]),
+        kf_events=sum(1 for r in m if r.get("event") in ("init", "keyframe")),
+        kf_event_frames=[i for i, r in enumerate(m)
+                         if r.get("event") in ("init", "keyframe")],
+        landed_solves=len(landed),
+        solves_cost_down=sum(1 for r in landed
+                             if r["ba_cost1"] <= r["ba_cost0"]),
+        dropped_solves=sum(1 for r in m if r.get("ba_dropped")),
+        keyframes=slam.n_keyframes, points=slam.n_points, launches=launches)
+    print(f"[async] {json.dumps(report)}", flush=True)
+    if not np.all(np.isfinite(est)) or est.shape != (n, 7):
+        fail(f"async {mode}: trajectory not finite or wrong shape {est.shape}")
+    if report["lost"]:
+        fail(f"async {mode}: {report['lost']} lost frames")
+    for k in fc.FRONTEND_KERNELS:
+        if launches[k] != n:
+            fail(f"async {mode}: {k}: {launches[k]} launches, expected one "
+                 f"per frame, {n}")
+    return slam, report, est
+
+
+def check_graph_replay(cfg, slam):
+    """The CUDA graph the async run captured against the eager solve on one
+    snapshot (the map ``slam`` ended with, around its latest keyframe):
+    every output bit-equal."""
+    import torch
+
+    from boslam_tpu_torch.mapping.map_state import latest_kf_slot
+    from boslam_tpu_torch.solvers.local_ba import deferred_local_ba
+
+    if slam._ba_graph is None:
+        fail("async: the deferred solve was not captured in a CUDA graph")
+    center = latest_kf_slot(slam.map)
+    eager = deferred_local_ba(cfg, slam.map, center)
+    replay = slam._ba_graph(slam.map, center)
+    torch.cuda.synchronize()
+    pairs = list(zip(eager[:-1], replay[:-1])) + list(zip(eager.stats,
+                                                          replay.stats))
+    differ = [name for name, (a, b) in zip(
+        eager._fields[:-1] + eager.stats._fields, pairs) if not torch.equal(a, b)]
+    print(f"[async] graph replay vs eager solve on one snapshot: "
+          f"{'bit-equal' if not differ else 'differ in ' + str(differ)}; "
+          f"cost {float(eager.stats.cost0):.3f} -> "
+          f"{float(eager.stats.cost1):.3f}, {int(eager.stats.n_edges)} edges",
+          flush=True)
+    if differ:
+        fail(f"deferred local BA: the CUDA graph's replay differs from the "
+             f"eager solve in {differ}")
+
+
+def check_async(cfg, traj, frames, fc, card):
+    """Phase 8a and 8b on phase 3's sequence; the inline run beside them
+    for the host clocks.  Returns the reports."""
+    import numpy as np
+
+    reports = {}
+    _, reports["inline"], _ = run_mode(cfg, traj, frames, "inline", fc)
+    asy, reports["async"], est_a = run_mode(cfg, traj, frames, "async", fc)
+    check_graph_replay(cfg, asy)
+    a = reports["async"]
+    bound = ATE_FACTOR * JAX_REFERENCE_ASYNC_ATE_M + ATE_SLACK_M
+    if not a["ate_m"] <= bound:
+        fail(f"async: ATE {a['ate_m']:.5f} m above the bound {bound:.5f} m")
+    if a["kf_events"] != JAX_REFERENCE_ASYNC_KF_EVENTS:
+        fail(f"async: {a['kf_events']} keyframe events, the JAX reference "
+             f"has {JAX_REFERENCE_ASYNC_KF_EVENTS}")
+    if a["solves_cost_down"] < 1:
+        fail("async: no landed solve with cost1 <= cost0")
+    if a["dropped_solves"]:
+        fail(f"async: {a['dropped_solves']} solves dropped without a loop")
+    strm, reports["stream"], est_s = run_mode(cfg, traj, frames, "stream", fc)
+    if strm._mapping_stream is None:
+        fail("async+stream: the solves did not run on a second stream")
+
+    def events(slam):
+        return [(r.get("event"), r["status"], r.get("kf_id"), r.get("ba_edges"),
+                 bool(r.get("ba_dropped"))) for r in slam.metrics]
+
+    diff = float(np.abs(est_s[:, 4:] - est_a[:, 4:]).max())
+    same_events = events(strm) == events(asy)
+    print(f"[async] second stream against the same stream: events "
+          f"{'equal' if same_events else 'differ'}, largest position "
+          f"difference {diff!r} m, bit-equal poses: "
+          f"{bool(np.array_equal(est_s, est_a))}; card {card}", flush=True)
+    if not same_events:
+        fail("async+stream: events differ from the same-stream run")
+    if not diff <= STREAM_POSE_ATOL_M:
+        fail(f"async+stream: poses differ by {diff} m from the same-stream "
+             f"run (> {STREAM_POSE_ATOL_M})")
+    return reports
+
+
+def run_cli(args, what):
+    """``python -m boslam_tpu_torch.main ARGS``; returns (summary dict,
+    completed process)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "boslam_tpu_torch.main", *args],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        print(res.stderr[-3000:], flush=True)
+        fail(f"CLI {what}: exit {res.returncode}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"[cli] {what} in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(summary)}", flush=True)
+    return summary, res
+
+
+def check_cli():
+    """Phase 8c: the CLI with async mapping on the second stream, metrics,
+    checkpoints and a profile, then resumed from its last checkpoint (it
+    goes on after the checkpoint's last frame: no frame lost, the whole
+    trajectory written, its ATE within the bound of the first run's)."""
+    import glob
+    import re
+    import shutil
+
+    import numpy as np
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    ck, prof = os.path.join(CLI_DIR, "ck"), os.path.join(CLI_DIR, "prof")
+    jsonl = os.path.join(CLI_DIR, "run.jsonl")
+    base = ["--synthetic", str(CLI_FRAMES), "--async-mapping",
+            "--mapping-device", "0"]
+    first, _ = run_cli(base + ["--out", os.path.join(CLI_DIR, "a.txt"),
+                               "--metrics", jsonl, "--checkpoint-every", "5",
+                               "--checkpoint-dir", ck, "--profile", prof],
+                       "async + metrics + checkpoints + profile")
+    with open(jsonl) as f:
+        n_lines = sum(1 for _ in f)
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    kernels = 0
+    for t in traces:
+        with open(t) as f:
+            kernels += f.read().count('"cat": "kernel"')
+    print(f"[cli] {n_lines} JSONL lines, traces {[(os.path.basename(t), os.path.getsize(t)) for t in traces]} "
+          f"with {kernels} device kernel events, checkpoint "
+          f"{os.path.exists(os.path.join(ck, 'state.pt'))}", flush=True)
+    if first["n_frames"] != CLI_FRAMES or first["lost"]:
+        fail(f"CLI: {first['n_frames']} frames, {first['lost']} lost")
+    if n_lines != CLI_FRAMES:
+        fail(f"CLI: {n_lines} JSONL lines for {CLI_FRAMES} frames")
+    if not traces:
+        fail("CLI: no trace in the profile dir")
+    if not os.path.exists(os.path.join(ck, "state.pt")):
+        fail("CLI: no checkpoint written")
+    resumed, res = run_cli(base + ["--out", os.path.join(CLI_DIR, "b.txt"),
+                                   "--resume", ck], "resumed")
+    done = re.search(r"resumed from .*: (\d+) keyframes, (\d+) frames",
+                     res.stderr)
+    if not done or resumed["lost"]:
+        fail(f"CLI resumed: {resumed['lost']} lost frames")
+    n_saved = int(done[2])
+    a, b = (np.loadtxt(os.path.join(CLI_DIR, f)) for f in ("a.txt", "b.txt"))
+    diff = float(np.abs(a[:, 1:4] - b[:, 1:4]).max())
+    print(f"[cli] resumed after frame {n_saved - 1}: its trajectory against "
+          f"the uninterrupted run's, largest position difference {diff!r} m",
+          flush=True)
+    if (resumed["frames"] != CLI_FRAMES
+            or resumed["n_frames"] != CLI_FRAMES - n_saved or n_saved < 1):
+        fail(f"CLI resumed: {resumed['n_frames']} new frames after {n_saved}, "
+             f"{resumed['frames']} poses")
+    bound = ATE_FACTOR * first["ate_rmse_m"] + ATE_SLACK_M
+    if not resumed["ate_rmse_m"] <= bound:
+        fail(f"CLI resumed: ATE {resumed['ate_rmse_m']} m above {bound} m")
+    return dict(first=first, resumed=resumed, jsonl_lines=n_lines,
+                trace_kernel_events=kernels, resumed_pose_diff_m=diff)
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
         sys.exit(2)
+    t_start = time.perf_counter()
     import numpy as np
 
     from boslam_tpu_torch.config import SlamConfig
@@ -781,9 +1054,11 @@ def main() -> None:
     fast, patch = check_frontend(dev, cfg)
 
     # ---- 3. end to end -----------------------------------------------------
-    traj = synthetic.orbit_trajectory(N_FRAMES, radius=0.6, yaw_amplitude=0.3)
+    traj = orbit_traj = synthetic.orbit_trajectory(N_FRAMES, radius=0.6,
+                                                   yaw_amplitude=0.3)
     t0 = time.perf_counter()
-    frames = synthetic.render_sequence(cam, traj, depth_noise=0.01, seed=0)
+    frames = orbit_frames = synthetic.render_sequence(cam, traj,
+                                                      depth_noise=0.01, seed=0)
     print(f"[e2e] rendered {N_FRAMES} frames {cam.width}x{cam.height} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     stamps = []
@@ -862,6 +1137,10 @@ def main() -> None:
     del slam
     check_global_ba(dev, smi)
 
+    # ---- 8. asynchronous local mapping, the CLI ---------------------------------
+    asy = check_async(cfg, orbit_traj, orbit_frames, fc, smi)
+    check_cli()
+
     def bound_of(bytes_, ops):
         t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
@@ -875,13 +1154,17 @@ def main() -> None:
          "replaces": "boslam_tpu/ops/frontend_pallas.py:132",
          "launches": launches["fast_rank"], "max_abs_err": fast["err"],
          "ms": fast["ms"], "plain_ms": fast["plain"], "bound_ms": f_bound,
-         "bound_by": f_by, "library_ms": None},
+         "bound_by": f_by, "library_ms": None,
+         "async_launches": asy["async"]["launches"]["fast_rank"],
+         "async_stream_launches": asy["stream"]["launches"]["fast_rank"]},
         {"name": "extract_patches", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/describe_patches.cu",
          "replaces": "boslam_tpu/ops/frontend_pallas.py:195",
          "launches": launches["extract_patches"], "max_abs_err": patch["err"],
          "ms": patch["ms"], "plain_ms": patch["plain"], "bound_ms": p_bound,
-         "bound_by": p_by, "library_ms": patch["lib"]},
+         "bound_by": p_by, "library_ms": patch["lib"],
+         "async_launches": asy["async"]["launches"]["extract_patches"],
+         "async_stream_launches": asy["stream"]["launches"]["extract_patches"]},
         {"name": "fused_match", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/fused_match.cu",
          "replaces": "boslam_tpu/ops/hamming_pallas.py:145",
@@ -904,13 +1187,16 @@ def main() -> None:
           "extract_patches: gather + orientation + BRIEF of the frame's 512 "
           "keypoints in one launch (plain_ms: extract_patches_plain -> "
           "orient_and_brief; library_ms: the 8 advanced-indexing gathers, "
-          "patches only); launches from phase 3; fused_match: one call at "
+          "patches only); launches from phase 3, async_launches and "
+          "async_stream_launches from phase 8a and 8b; fused_match: one call at "
           "512 x 65536 without a window, 80% of the columns visible "
           "(bound_ms over the visible columns at the int8 rate; eager_ms: "
           "host ms per eager call), live_map_*: the lowest 600 slots "
           "visible, captured_*: the input of kidnap's first whole-map call, "
           "launches from phase 5; ms, plain_ms "
           "and library_ms are device times from CUDA-graph replay",
+          flush=True)
+    print(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

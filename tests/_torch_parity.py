@@ -5,6 +5,11 @@ port through ``boslam_tpu_torch.convert`` as numpy arrays."""
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 import jax.numpy as jnp
@@ -133,3 +138,29 @@ def assert_state_close(ref, got, atol=1e-5, loose=(), loose_atol=1e-4):
                 err_msg=k)
         else:
             np.testing.assert_array_equal(have, want, err_msg=k)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+TUM_MINI = ROOT / "tests" / "data" / "tum_mini"
+# The resolution of tests/data/tum_mini, patched into the fr1 preset.
+TUM_MINI_CAM = dict(width=160, height=120, fx=65.0, fy=65.0, cx=80.0, cy=60.0)
+
+
+def run_cli(*argv, check: bool = True, env=None):
+    """``python -m boslam_tpu_torch.main ARGV`` in a subprocess (``env``
+    added to its environment), with the fr1 preset patched to tum_mini's
+    160x120 camera; returns the completed process (its return code 0
+    asserted unless ``check`` is False)."""
+    argv = ["main", *map(str, argv)]
+    code = (
+        "import sys, dataclasses, boslam_tpu_torch.config as C;"
+        f"C.TUM_FR1 = dataclasses.replace(C.TUM_FR1, **{TUM_MINI_CAM!r});"
+        "from boslam_tpu_torch.main import main;"
+        f"sys.argv = {argv!r}; main()"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, **(env or {})),
+                         capture_output=True, text=True, timeout=300)
+    if check:
+        assert res.returncode == 0, res.stderr[-2000:]
+    return res

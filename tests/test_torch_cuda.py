@@ -12,7 +12,8 @@ corner support, and bit-identical; ``extract_patches`` bit-exact;
 within 1e-4, descriptors exact wherever the angle bin agrees, bins differing
 only at a bin edge or at ill-conditioned moments: the moments' summation
 order differs); ``fused_match_top2`` indices, masks and matched distances
-exact."""
+exact; async mapping's CUDA-graph solve and its second-stream placement
+bit-equal to the eager solve and to the same-stream run."""
 
 import numpy as np
 import pytest
@@ -234,3 +235,47 @@ def test_fused_match_counts_launches_and_rejects_bad_inputs(cuda_device):
         hc.fused_match_top2(prob[0].long(), *prob[1:], max_dist=64)
     with pytest.raises(ValueError):
         hc.fused_match_top2(prob[0], *prob[1:4], prob[4].cpu(), *prob[5:], max_dist=64)
+
+
+def _async_run(cfg, frames, mapping_device):
+    from boslam_tpu_torch.slam import SlamSystem
+
+    slam = SlamSystem(cfg, chunk=8, async_mapping=True,
+                      mapping_device=mapping_device)
+    for f in frames:
+        slam.feed(*f)
+    return slam, slam.trajectory()[1]
+
+
+@pytest.mark.cuda
+def test_async_mapping_on_a_second_stream_matches_the_same_stream(cuda_device):
+    """Async mapping at a small size: the deferred solves replayed from the
+    CUDA graph on a second stream give the same-stream run's events and
+    poses bit for bit, and the graph's replay equals the eager solve on one
+    snapshot."""
+    from boslam_tpu_torch.mapping.map_state import latest_kf_slot
+    from boslam_tpu_torch.solvers.local_ba import deferred_local_ba
+
+    cfg = SlamConfig.from_dict(dict(
+        camera=dict(width=320, height=240, fx=130.0, fy=130.0, cx=160.0,
+                    cy=120.0),
+        orb=dict(n_features=256, n_levels=4),
+        map=dict(max_keyframes=32, max_points=4096)))
+    traj = synthetic.orbit_trajectory(24, radius=0.5, yaw_amplitude=0.2)
+    frames = synthetic.render_sequence(cfg.camera, traj)
+    same, est_same = _async_run(cfg, frames, None)
+    side, est_side = _async_run(cfg, frames, 0)
+    assert same._mapping_stream is None and side._mapping_stream is not None
+    assert same._ba_graph is not None and side._ba_graph is not None
+    events = [[(m.get("event"), m.get("ba_edges"), m.get("ba_cost1"))
+               for m in s.metrics] for s in (same, side)]
+    assert events[0] == events[1]
+    assert sum(1 for e in events[0] if e[0] == "keyframe" and e[1]) >= 4
+    np.testing.assert_array_equal(est_side, est_same)
+
+    center = latest_kf_slot(same.map)
+    eager = deferred_local_ba(cfg, same.map, center)
+    replay = same._ba_graph(same.map, center)
+    for a, b in zip(list(eager[:-1]) + list(eager.stats),
+                    list(replay[:-1]) + list(replay.stats)):
+        assert torch.equal(a, b)

@@ -1,39 +1,27 @@
 """The port's CLI, ``python -m boslam_tpu_torch.main``, on the TUM-format
 fixture ``tests/data/tum_mini``: the same bar as the JAX CLI's test in
 tests/test_io.py (ATE < 5 cm, six poses in TUM format), and every pose
-within 1 cm of the JAX engine's on the same frames."""
+within 1 cm of the JAX engine's on the same frames; ``--async-mapping``
+against the JAX engine's async run, and ``--mapping-device`` without a
+card."""
 
 import dataclasses
 import json
 import re
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 
 import _torch_parity as tp
 
-ROOT = Path(__file__).resolve().parents[1]
 POSE_ATOL_M = 0.01
-SMALL = dict(width=160, height=120, fx=65.0, fy=65.0, cx=80.0, cy=60.0)
 
 
 def _run_cli(tmp_path, *extra):
     """The port's CLI on tests/data/tum_mini at the fr1 preset patched to
     its 160x120 resolution: (completed process, trajectory path)."""
-    root = str(ROOT / "tests" / "data" / "tum_mini")
     out = str(tmp_path / "traj.txt")
-    argv = ["main", "--tum", root, "--out", out, "--device", "cpu", *extra]
-    code = (
-        "import sys, dataclasses, boslam_tpu_torch.config as C;"
-        f"C.TUM_FR1 = dataclasses.replace(C.TUM_FR1, **{SMALL!r});"
-        "from boslam_tpu_torch.main import main;"
-        f"sys.argv = {argv!r}; main()"
-    )
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-2000:]
+    res = tp.run_cli("--tum", tp.TUM_MINI, "--out", out, "--device", "cpu",
+                     *extra)
     return res, out
 
 
@@ -51,9 +39,9 @@ def test_cli_on_tum_mini_matches_jax_engine(tmp_path):
     assert summary["lost"] == 0 and summary["ate_rmse_m"] < 0.05
     _, poses = tum.load_trajectory(out)
 
-    cam = dataclasses.replace(j_config.TUM_FR1, **SMALL)
+    cam = dataclasses.replace(j_config.TUM_FR1, **tp.TUM_MINI_CAM)
     ref = tp.jax_engine(j_config.SlamConfig(camera=cam),
-                        j_tum.sequence(str(ROOT / "tests" / "data" / "tum_mini"),
+                        j_tum.sequence(str(tp.TUM_MINI),
                                        cam.depth_factor))
     _, est_ref = ref.trajectory()
     np.testing.assert_array_less(
@@ -77,3 +65,37 @@ def test_cli_global_ba_on_tum_mini(tmp_path):
     assert summary["ate_rmse_m"] < 0.05
     _, poses = tum.load_trajectory(out)
     assert poses.shape == (6, 7) and np.all(np.isfinite(poses))
+
+
+def test_cli_async_mapping_on_tum_mini_matches_jax_counts(tmp_path):
+    """``--async-mapping``: the summary's counts are those the JAX CLI
+    prints for its async run on the same frames (its engine with
+    ``async_mapping=True``, frame by frame, summarized by the JAX module),
+    the ATE within the same bar (< 5 cm)."""
+    from boslam_tpu import config as j_config
+    from boslam_tpu.io import tum as j_tum
+    from boslam_tpu.slam import SlamSystem as JaxSlam
+    from boslam_tpu.utils.metrics import summarize
+
+    res, out = _run_cli(tmp_path, "--async-mapping")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    cam = dataclasses.replace(j_config.TUM_FR1, **tp.TUM_MINI_CAM)
+    ref = JaxSlam(j_config.SlamConfig(camera=cam), async_mapping=True)
+    for f in j_tum.sequence(str(tp.TUM_MINI), cam.depth_factor, native=None):
+        ref.process_frame(*f)
+    ref.trajectory()
+    want = summarize(ref.metrics)
+    for k in ("n_frames", "n_keyframe_events", "n_lost", "n_loops"):
+        assert summary[k] == want[k], k
+    assert summary["keyframes"] == ref.n_keyframes
+    assert summary["frames"] == 6 and summary["ate_rmse_m"] < 0.05
+
+
+def test_cli_mapping_device_needs_a_card(tmp_path):
+    """``--mapping-device N`` names a CUDA device: without a card the CLI
+    fails with the device rule's error, also on a CPU engine."""
+    res = tp.run_cli("--tum", tp.TUM_MINI, "--out", tmp_path / "t.txt",
+                     "--device", "cpu", "--mapping-device", "0", check=False,
+                     env={"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr.strip().splitlines()[-1]

@@ -424,3 +424,32 @@ def test_import_leaves_out_jax_and_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) > 25
+
+
+def test_import_needs_no_optional_host_package():
+    """The card's machine has no cv2, matplotlib, tensorboard or PyYAML:
+    with those hidden, every module of the port still imports, and the
+    async engine's device rule still holds."""
+    code = (
+        "import sys\n"
+        "for n in ('cv2', 'matplotlib', 'tensorboard', 'yaml'):\n"
+        "    sys.modules[n] = None\n"
+        "import pkgutil, torch, boslam_tpu_torch\n"
+        "for m in pkgutil.walk_packages(boslam_tpu_torch.__path__, "
+        "'boslam_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "from boslam_tpu_torch.config import SlamConfig\n"
+        "from boslam_tpu_torch.slam import SlamSystem\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "try:\n"
+        "    SlamSystem(SlamConfig(), async_mapping=True)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('async engine without a card')\n"
+        "print(len([n for n in sys.modules if n.startswith('boslam_tpu_torch')]))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) > 30

@@ -8,11 +8,12 @@ and ``tools/torch_sequence.py`` runs the port on the same frames.  Without
 verifying a loop; ``--loops`` leaves it at the reference's 4.  ``--global-ba`` runs one
 ``SlamSystem.run_global_ba()`` after the run, as ``main.py --global-ba``
 does after its final flush (without the per-closure hook, so the events
-stay the run's own).
+stay the run's own).  ``--async-mapping`` runs the engine with
+``async_mapping=True`` (local BA deferred to the flushes).
 
     JAX_PLATFORMS=cpu python tools/jax_reference_ate.py
         [--sequence orbit|hall|kidnap|loop|survey] [--loops] [--global-ba]
-        [--seed S] [--frames N] [--out traj.npy]
+        [--async-mapping] [--seed S] [--frames N] [--out traj.npy]
     JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --ba-problem
 
 Prints one JSON line: ATE (m), keyframes, points, lost frames,
@@ -58,6 +59,8 @@ def main() -> None:
                     help="the engine's seed (its RANSAC draws)")
     ap.add_argument("--global-ba", action="store_true",
                     help="run global BA once after the run")
+    ap.add_argument("--async-mapping", action="store_true",
+                    help="defer local BA to the flushes (async mapping)")
     ap.add_argument("--ba-problem", action="store_true",
                     help="run the bench's synthetic global-BA problem")
     args = ap.parse_args()
@@ -75,7 +78,7 @@ def main() -> None:
     cfg, traj, frames = sequences.build(args.sequence, SlamConfig, synthetic,
                                         args.frames)
     t0 = time.perf_counter()
-    slam = SlamSystem(cfg, seed=args.seed)
+    slam = SlamSystem(cfg, seed=args.seed, async_mapping=args.async_mapping)
     if not args.loops:
         slam.MAX_VERIFY = 0
     vocab_ready = []  # what each frame's step sees
@@ -105,6 +108,7 @@ def main() -> None:
     print(json.dumps({
         "sequence": args.sequence,
         "loops": args.loops,
+        "async_mapping": args.async_mapping,
         "ate_m": float(rmse),
         "frames": len(frames),
         "keyframes": slam.n_keyframes,

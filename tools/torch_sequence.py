@@ -6,12 +6,15 @@ The JAX reference on the same frames comes from
 (with ``--loops`` when this run has it).
 
     python tools/torch_sequence.py [--sequence orbit|hall|kidnap|loop|survey]
-        [--loops] [--global-ba] [--seed S] [--frames N] [--warmup 10]
-        [--device cuda|cpu]
+        [--loops] [--global-ba] [--async-mapping [--mapping-device N]]
+        [--seed S] [--frames N] [--warmup 10] [--device cuda|cpu]
 
 Without ``--loops`` the engine verifies no loop (``MAX_VERIFY = 0``), as the
 reference tool does.  ``--global-ba`` runs one ``run_global_ba()`` after the
-run, as the reference tool does.  Prints one JSON line: ATE (m), fps after
+run, as the reference tool does.  ``--async-mapping`` defers local BA to
+the flushes, as the reference tool's ``--async-mapping`` does;
+``--mapping-device N`` runs the deferred solves on CUDA device N (the
+working card: its second stream).  Prints one JSON line: ATE (m), fps after
 the warm-up frames, keyframes, points, lost frames, keyframe-event frame
 indices, the relocalization attempts and successes, the loops closed, host
 syncs per frame, the card, and with ``--global-ba`` the ATE after it, its
@@ -49,6 +52,10 @@ def main() -> None:
                     help="the engine's seed (its RANSAC draws)")
     ap.add_argument("--global-ba", action="store_true",
                     help="run global BA once after the run")
+    ap.add_argument("--async-mapping", action="store_true",
+                    help="defer local BA to the flushes (async mapping)")
+    ap.add_argument("--mapping-device", type=int, default=None,
+                    help="CUDA device index of the deferred solves")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -61,12 +68,16 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg, traj, frames = sequences.build(args.sequence, SlamConfig, synthetic,
                                         args.frames)
-    slam = SlamSystem(cfg, seed=args.seed, device=args.device)
+    slam = SlamSystem(cfg, seed=args.seed, device=args.device,
+                      async_mapping=args.async_mapping,
+                      mapping_device=args.mapping_device)
     cuda = slam.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if not args.loops:
         slam.MAX_VERIFY = 0
     out = {"sequence": args.sequence, "loops": args.loops,
+           "async_mapping": slam.async_mapping,
+           "mapping_device": args.mapping_device,
            "frames": len(frames),
            "card": torch.cuda.get_device_name(0) if cuda else "cpu"}
     t_warm = None
