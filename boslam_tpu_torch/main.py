@@ -9,7 +9,11 @@ Examples:
     python -m boslam_tpu_torch.main --synthetic 60 --async-mapping \
         --mapping-device 0 --checkpoint-every 5 --checkpoint-dir ckpt
     python -m boslam_tpu_torch.main --synthetic 60 --resume ckpt
-        (goes on from the frame after the checkpoint's last)
+        (the restored engine is fed the sequence again from frame 0)
+    BOSLAM_COORDINATOR=host0:8476 BOSLAM_NUM_PROCESSES=2 \
+        BOSLAM_PROCESS_ID=0 python -m boslam_tpu_torch.main --synthetic 120 \
+        --distributed --global-ba     (and PROCESS_ID=1 on the other rank;
+        see parallel/distributed.py, torchrun works too)
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
 ``--viz``, ``--metrics-tb`` and ``--config`` need matplotlib, tensorboard
@@ -21,7 +25,6 @@ exists, its ATE.
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import sys
 
@@ -58,6 +61,11 @@ def main() -> None:
                     help="torch device (default: cuda, which must exist)")
     ap.add_argument("--global-ba", action="store_true",
                     help="run full-map BA after loop closures AND at exit")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the torch.distributed process group (NCCL "
+                         "on the cards, gloo with --device cpu) and run "
+                         "global BA landmark-sharded over all its ranks; "
+                         "see parallel/distributed.py for the launch recipe")
     ap.add_argument("--viz", type=str, default=None,
                     help="render the final map + trajectory to this PNG "
                          "(needs matplotlib)")
@@ -75,6 +83,16 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
+
+    if args.distributed:
+        # Before anything touches CUDA: the rank's card is chosen here.
+        from boslam_tpu_torch.device import resolve_device
+        from boslam_tpu_torch.parallel.distributed import (
+            maybe_initialize, rank_device,
+        )
+
+        args.device = str(rank_device(resolve_device(args.device)))
+        maybe_initialize(force=True, device=args.device)
 
     from boslam_tpu_torch.config import (
         ICL_NUIM, SlamConfig, TUM_FR1, TUM_FR2, TUM_FR3,
@@ -126,22 +144,33 @@ def main() -> None:
     else:
         ap.error("need --tum, --icl or --synthetic")
 
+    ba_mesh = None
+    if args.distributed:
+        from boslam_tpu_torch.parallel.distributed import runtime_info
+        from boslam_tpu_torch.parallel.mesh import make_mesh
+
+        info = runtime_info()
+        print(f"[distributed] {info}", file=sys.stderr)
+        if info["global_devices"] > 1:
+            ba_mesh = make_mesh(seq=1)
+            print(
+                f"[distributed] global BA sharded over "
+                f"pt={ba_mesh.shape['pt']} devices", file=sys.stderr,
+            )
+
     slam = SlamSystem(cfg, seed=args.seed, device=args.device,
                       async_mapping=args.async_mapping,
-                      mapping_device=args.mapping_device)
-    n_done = 0
+                      mapping_device=args.mapping_device, ba_mesh=ba_mesh)
     if args.resume:
+        # As the reference's CLI does: the restored engine is fed the
+        # sequence again from its first frame.
         ckpt.restore(args.resume, slam)
-        # The run goes on where the snapshot left off: the frames it holds
-        # are not fed again.
-        n_done = len(slam.timestamps)
-        frames = itertools.islice(frames, n_done, None)
         print(f"resumed from {args.resume}: {slam.n_keyframes} keyframes, "
-              f"{n_done} frames", file=sys.stderr)
+              f"{len(slam.timestamps)} frames", file=sys.stderr)
 
     last_ckpt_kf = slam.n_keyframes
     with profile_trace(args.profile) as step:
-        for i, (ts, rgb, depth) in enumerate(frames, start=n_done):
+        for i, (ts, rgb, depth) in enumerate(frames):
             slam.process_frame(ts, rgb, depth)
             step()
             m = slam.metrics[-1]

@@ -26,6 +26,10 @@ flush merges the results under per-entry identity guards
 (``merge_local_ba``).  ``mapping_device`` naming the working card runs the
 solves on a second CUDA stream of it; naming another device, on that
 device.
+
+``feed_batch`` copies several frames to the device at once; ``ba_mesh``
+shards global BA over the ranks of a process group
+(``parallel.sharded_global_ba``).
 """
 
 from __future__ import annotations
@@ -113,6 +117,22 @@ def depth_wire(depth: np.ndarray, cam) -> np.ndarray:
     keep = valid & (np.abs(b - med[..., None]) <= 0.05 * med[..., None])
     out = (b * keep).sum(-1) / np.maximum(keep.sum(-1), 1)
     return np.rint(np.where(c > 0, out, 0.0)).astype(np.uint16)
+
+
+def wire_frame(cfg: SlamConfig, rgb: np.ndarray, depth: np.ndarray):
+    """One frame in the engine's wire format: (u8 gray [H, W], u16 depth at
+    ``cfg.camera.depth_wire_shape``).  ``rgb`` may be [H, W, 3] u8 RGB or an
+    [H, W] grayscale image; ``depth`` f32 metres or u16 at the camera
+    depth_factor (already-wire u16 ships as it is)."""
+    if rgb.ndim == 3:
+        img = to_gray_u8(rgb)
+    else:
+        img = rgb if rgb.dtype == np.uint8 else \
+            np.clip(rgb, 0, 255).astype(np.uint8)
+    cam = cfg.camera
+    if depth.dtype != np.uint16 or depth.shape != cam.depth_wire_shape:
+        depth = depth_wire(depth, cam)
+    return img, depth
 
 
 # Packed per-frame output row (f32[OUT_DIM]) — the ONLY device->host data.
@@ -304,6 +324,11 @@ class SlamSystem:
     solves: on the working card, a second CUDA stream of it; on another
     device, the map is copied there and the results back; on the CPU
     engine, ``"cpu"`` is the same-device path.
+
+    ``ba_mesh`` (``parallel.mesh.Mesh``): with more than one rank on its
+    ``pt`` axis, global BA (``run_global_ba`` and the loop-closure hook)
+    runs landmark-sharded over those ranks
+    (``parallel.sharded_global_ba``); every rank must call it.
     """
 
     # Max consistent candidates verified per drain; extras are dropped
@@ -312,8 +337,9 @@ class SlamSystem:
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, chunk: int = 16,
                  device=None, async_mapping: bool = False,
-                 mapping_device=None):
+                 mapping_device=None, ba_mesh=None):
         self.cfg = cfg
+        self.ba_mesh = ba_mesh
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
         self.async_mapping = bool(async_mapping) or mapping_device is not None
@@ -369,14 +395,7 @@ class SlamSystem:
         grayscale image; ``depth`` f32 metres or u16 at the camera
         depth_factor."""
         t0 = time.perf_counter()
-        if rgb.ndim == 3:
-            img = to_gray_u8(rgb)
-        else:
-            img = rgb if rgb.dtype == np.uint8 else \
-                np.clip(rgb, 0, 255).astype(np.uint8)
-        cam = self.cfg.camera
-        if depth.dtype != np.uint16 or depth.shape != cam.depth_wire_shape:
-            depth = depth_wire(depth, cam)
+        img, depth = wire_frame(self.cfg, rgb, depth)
         self.map, self.loop, self.track, row = frame_step_core(
             self.cfg, self.map, self.loop, self.track, self.generator,
             self._upload(img), self._upload(depth), self.sync,
@@ -385,6 +404,37 @@ class SlamSystem:
         self._pending_rows.append(row)
         self._pending_ts.append(ts)
         self._pending_t0.append(t0)
+        if len(self._pending_rows) >= self.chunk:
+            self.flush()
+
+    def feed_batch(self, batch) -> None:
+        """Feed a list of ``(ts, rgb, depth)`` frames through ONE stacked,
+        pinned host-to-device copy, then ``frame_step_core`` per frame on
+        views of it.
+
+        Semantics match feeding the same frames singly and flushing after
+        the batch: the flush comes at the batch's end only, once the pending
+        frames reach ``chunk``.  The frames share one copy, so no per-frame
+        latency is kept: their records carry ``batch_mode`` and no
+        ``dt_ms``.  The reference also scans the batch in one device
+        program (``_fused_frame_scan``); this frame step branches on the
+        host (it reads the track status, the keyframe decision and the
+        relocalization outcome), so it cannot be scanned and runs frame by
+        frame.
+        """
+        if not batch:
+            return
+        wires = [wire_frame(self.cfg, rgb, depth) for _, rgb, depth in batch]
+        imgs = self._upload(np.stack([w[0] for w in wires]))
+        d16s = self._upload(np.stack([w[1] for w in wires]))
+        for i, (ts, _, _) in enumerate(batch):
+            self.map, self.loop, self.track, row = frame_step_core(
+                self.cfg, self.map, self.loop, self.track, self.generator,
+                imgs[i], d16s[i], self.sync, not self.async_mapping,
+            )
+            self._pending_rows.append(row)
+            self._pending_ts.append(ts)
+            self._pending_t0.append(None)
         if len(self._pending_rows) >= self.chunk:
             self.flush()
 
@@ -424,8 +474,11 @@ class SlamSystem:
                 "n_matches": int(r[O_NMATCH]),
                 "n_visible": int(r[O_NVIS]),
                 "lost": bool(r[O_LOST] > 0.5),
-                "dt_ms": (t_drain - t0) * 1e3,
             }
+            if t0 is not None:
+                rec["dt_ms"] = (t_drain - t0) * 1e3
+            else:
+                rec["batch_mode"] = True
             if r[O_RELOC] > 0.5:
                 rec["event"] = "relocalize"
                 rec["reloc_ok"] = bool(r[O_RELOC] > 1.5)
@@ -637,9 +690,10 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def run_global_ba(self) -> dict:
-        """Full-map bundle adjustment on this engine's device; returns the
-        record it adds to the last frame's metrics (costs before and after,
-        edge count)."""
+        """Full-map bundle adjustment; returns the record it adds to the
+        last frame's metrics (costs before and after, edge count, whether
+        it ran distributed).  Landmark-sharded over ``ba_mesh``'s ``pt``
+        ranks when it has more than one, else on this engine's device."""
         cfg = self.cfg
         # The latest keyframe anchors the tracked pose across the solve:
         # keep the frame's pose relative to it (T_cur_ref = pose_cw ∘
@@ -650,20 +704,36 @@ class SlamSystem:
         t_cur_ref = se3.pose_compose(
             self.track.pose_cw, se3.pose_inv(self.map.kf_pose[ref])
         )
-        self.map, stats = global_bundle_adjustment(
-            cfg, self.map, lm_iters=cfg.loop.global_ba_iters,
-            cg_iters=cfg.loop.global_ba_cg_iters, sync=self.sync,
-        )
+        distributed = (self.ba_mesh is not None
+                       and self.ba_mesh.shape["pt"] > 1)
+        if distributed:
+            from boslam_tpu_torch.parallel.sharded_global_ba import (
+                distributed_global_ba,
+            )
+
+            self.map, (cost0, cost1, n_edges) = distributed_global_ba(
+                cfg, self.ba_mesh, self.map,
+                lm_iters=cfg.loop.global_ba_iters,
+                cg_iters=cfg.loop.global_ba_cg_iters, device=self.device,
+                sync=self.sync,
+            )
+        else:
+            self.map, stats = global_bundle_adjustment(
+                cfg, self.map, lm_iters=cfg.loop.global_ba_iters,
+                cg_iters=cfg.loop.global_ba_cg_iters, sync=self.sync,
+            )
+            cost0, cost1, n_edges = (float(stats.cost0), float(stats.cost1),
+                                     int(stats.n_edges))
         self.track = self.track._replace(
             pose_cw=se3.pose_compose(t_cur_ref, self.map.kf_pose[ref]),
             velocity=se3.pose_identity(device=self.device),
         )
         self.n_global_ba += 1
         rec = {
-            "gba_cost0": float(stats.cost0),
-            "gba_cost1": float(stats.cost1),
-            "gba_edges": int(stats.n_edges),
-            "gba_distributed": False,
+            "gba_cost0": cost0,
+            "gba_cost1": cost1,
+            "gba_edges": n_edges,
+            "gba_distributed": distributed,
         }
         if self.metrics:
             self.metrics[-1].update(rec)
@@ -705,10 +775,23 @@ def run_sequence(
     chunk: int = 16,
     device=None,
     async_mapping: bool = False,
+    batch: int = 0,
 ) -> SlamSystem:
-    """Run the engine over an iterable of (ts, rgb, depth)."""
+    """Run the engine over an iterable of (ts, rgb, depth).
+
+    ``batch > 1`` feeds fixed-size batches through ``feed_batch`` (one
+    stacked copy each); the remainder frames go through ``feed``."""
     slam = SlamSystem(cfg, seed=seed, chunk=chunk, device=device,
                       async_mapping=async_mapping)
+    if batch > 1:
+        frames = list(frames)
+        n_full = (len(frames) // batch) * batch
+        for i in range(0, n_full, batch):
+            slam.feed_batch(frames[i:i + batch])
+        for ts, rgb, depth in frames[n_full:]:
+            slam.feed(ts, rgb, depth)
+        slam.flush()
+        return slam
     for i, (ts, rgb, depth) in enumerate(frames):
         slam.feed(ts, rgb, depth)
         if progress and i % 25 == 0 and slam.metrics:

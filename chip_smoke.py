@@ -55,6 +55,22 @@ Phases, each fatal on failure:
      --checkpoint-every 5 --checkpoint-dir --profile``, then ``--resume``
      from its checkpoint.  The native loader is held on the CPU only: the
      card's machine has no libpng to build it against.
+  9. the parallel layer: (a) ``run_sequences`` over four full-width
+     sequences of unequal length on the one card (``kidnap`` and three more
+     orbits, ``tools/sequences.py`` BATCH): each sequence's relocalization
+     frames, successes, lost frames and closed loops the JAX reference's
+     batched run's, each ATE within the bound, no record from a finished
+     sequence, one launch of each frontend kernel per active
+     sequence-frame, B3's launches ``kidnap``'s whole-map attempts;
+     aggregate frames/s beside phase 3's, host syncs per sequence-frame;
+     (b) distributed global BA on phase 7a's problem, one rank over NCCL
+     and two ranks on the one card over gloo (subprocesses, file
+     rendezvous), against the single-device solver with the reference
+     test's tolerances, the two ranks bit-equal; LM iterations/s of each;
+     (c) the CLI with ``--distributed --global-ba`` as one rank; (d)
+     ``run_sequence(batch=8)`` (``feed_batch``) on phase 3's frames: every
+     pose within 1e-6 m of phase 3's, one launch per frame of each frontend
+     kernel.
 
 Prints the ``kernels`` JSON line, the card line and, last, the device JSON.
 Exits non-zero without a result when no CUDA device is visible or the port
@@ -142,6 +158,29 @@ N_FRAMES, WARMUP = 120, 10
 JAX_REFERENCE_ASYNC_ATE_M = 0.02101525478065014
 JAX_REFERENCE_ASYNC_KF_EVENTS = 30
 STREAM_POSE_ATOL_M = 1e-6
+# Phase 9a: the JAX reference's ``run_sequences`` on the four sequences of
+# ``sequences.BATCH`` over a 4-device CPU mesh, ``JAX_PLATFORMS=cpu python
+# tools/jax_reference_ate.py --batched`` (events from ``sequences.batch_events``).
+JAX_BATCHED = {
+    "kidnap": dict(ate_m=0.020975813269615173, keyframes=9, points=543,
+                   lost_frames=[8, 70], reloc_frames=[9, 10, 71, 72],
+                   reloc_ok_frames=[10, 72], loop_closed_frames=[]),
+    "batch_a": dict(ate_m=0.020750300958752632, keyframes=9, points=606,
+                    lost_frames=[], reloc_frames=[], reloc_ok_frames=[],
+                    loop_closed_frames=[]),
+    "batch_b": dict(ate_m=0.01484327670186758, keyframes=8, points=573,
+                    lost_frames=[], reloc_frames=[], reloc_ok_frames=[],
+                    loop_closed_frames=[]),
+    "batch_c": dict(ate_m=0.018613949418067932, keyframes=9, points=640,
+                    lost_frames=[], reloc_frames=[], reloc_ok_frames=[],
+                    loop_closed_frames=[]),
+}
+BATCH_EVENTS = ("lost_frames", "reloc_frames", "reloc_ok_frames",
+                "loop_closed_frames")
+# Phase 9b: tests/test_parallel.py's tolerances for distributed global BA.
+DGBA_COST0_RTOL, DGBA_POSE_ATOL_M, DGBA_POINT_ATOL_M = 1e-2, 2e-3, 5e-3
+DGBA_DIR = os.path.join("build", "smoke_dgba")
+FEED_BATCH = 8
 # Phase 8c: the CLI's runs.
 CLI_FRAMES, CLI_DIR = 60, os.path.join("build", "smoke_cli")
 FAST_RTOL, FAST_ATOL = 1e-5, 1e-3
@@ -528,23 +567,18 @@ def timed_events():
     return times, restore
 
 
-def run_events(name, fc):
+def run_events(name, fc, built):
     """Phases 5 and 6: a named sequence with lost frames or loops, every
-    frame synchronized and timed, held to the JAX reference's events."""
+    frame synchronized and timed, held to the JAX reference's events.
+    ``built``: the sequence's (cfg, trajectory, frames)."""
     import numpy as np
     import torch
 
-    import sequences
-    from boslam_tpu_torch.config import SlamConfig
     from boslam_tpu_torch.geometry import align
-    from boslam_tpu_torch.io import synthetic
     from boslam_tpu_torch.slam import SlamSystem
 
     ref = JAX_REFERENCE[name]
-    t0 = time.perf_counter()
-    cfg, traj, frames = sequences.build(name, SlamConfig, synthetic)
-    print(f"[{name}] rendered {len(frames)} frames in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg, traj, frames = built
     events, restore = timed_events()
     fc.reset_launches()
     try:
@@ -956,9 +990,10 @@ def run_cli(args, what):
 
 def check_cli():
     """Phase 8c: the CLI with async mapping on the second stream, metrics,
-    checkpoints and a profile, then resumed from its last checkpoint (it
-    goes on after the checkpoint's last frame: no frame lost, the whole
-    trajectory written, its ATE within the bound of the first run's)."""
+    checkpoints and a profile, then resumed from its last checkpoint: as the
+    reference's CLI does, the restored engine is fed the sequence again from
+    frame 0, so it writes the checkpoint's frames followed by all 60 (their
+    timestamps bit-equal to the first run's) and reports its lost frames."""
     import glob
     import re
     import shutil
@@ -997,26 +1032,409 @@ def check_cli():
                                    "--resume", ck], "resumed")
     done = re.search(r"resumed from .*: (\d+) keyframes, (\d+) frames",
                      res.stderr)
-    if not done or resumed["lost"]:
-        fail(f"CLI resumed: {resumed['lost']} lost frames")
+    if not done:
+        fail("CLI resumed: no 'resumed from' line")
     n_saved = int(done[2])
     a, b = (np.loadtxt(os.path.join(CLI_DIR, f)) for f in ("a.txt", "b.txt"))
-    diff = float(np.abs(a[:, 1:4] - b[:, 1:4]).max())
-    print(f"[cli] resumed after frame {n_saved - 1}: its trajectory against "
-          f"the uninterrupted run's, largest position difference {diff!r} m",
-          flush=True)
-    if (resumed["frames"] != CLI_FRAMES
-            or resumed["n_frames"] != CLI_FRAMES - n_saved or n_saved < 1):
+    diff = float(np.abs(a[:n_saved, 1:4] - b[:n_saved, 1:4]).max())
+    print(f"[cli] resumed after frame {n_saved - 1}, fed frames 0-"
+          f"{CLI_FRAMES - 1} again: {resumed['frames']} poses, "
+          f"{resumed['lost']} lost frames; the checkpoint's frames re-anchored "
+          f"on the resumed map against the first run's, largest position "
+          f"difference {diff!r} m", flush=True)
+    if (n_saved < 1 or resumed["frames"] != n_saved + CLI_FRAMES
+            or resumed["n_frames"] != CLI_FRAMES or len(b) != len(a) + n_saved):
         fail(f"CLI resumed: {resumed['n_frames']} new frames after {n_saved}, "
              f"{resumed['frames']} poses")
-    bound = ATE_FACTOR * first["ate_rmse_m"] + ATE_SLACK_M
-    if not resumed["ate_rmse_m"] <= bound:
-        fail(f"CLI resumed: ATE {resumed['ate_rmse_m']} m above {bound} m")
+    if not (np.array_equal(b[:n_saved, 0], a[:n_saved, 0])
+            and np.array_equal(b[n_saved:, 0], a[:, 0])):
+        fail("CLI resumed: timestamps differ from the first run's")
     return dict(first=first, resumed=resumed, jsonl_lines=n_lines,
                 trace_kernel_events=kernels, resumed_pose_diff_m=diff)
 
 
+def kidnap_from_orbit(orbit_frames):
+    """``kidnap``'s (cfg, trajectory, frames) from phase 3's frames: the same
+    orbit, rendered alike, with its blanks."""
+    import sequences
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.io import synthetic
+
+    seq = sequences.SEQUENCES["kidnap"]
+    return (SlamConfig.from_dict(seq["cfg"]),
+            getattr(synthetic, seq["trajectory"][0])(**seq["trajectory"][1]),
+            sequences.blank_frames(orbit_frames, seq["blank"]))
+
+
+def check_batched(orbit_frames, fc, single_fps, kidnap_est, card):
+    """Phase 9a: ``run_sequences`` over ``sequences.BATCH`` on the one card.
+    ``kidnap``'s frames are phase 3's with its blanks; the other three are
+    rendered.  Returns the report."""
+    import numpy as np
+    import torch
+
+    import sequences
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.geometry import align
+    from boslam_tpu_torch.io import synthetic
+    from boslam_tpu_torch.parallel import multi
+
+    t0 = time.perf_counter()
+    runs = [("kidnap", *kidnap_from_orbit(orbit_frames))]
+    # The other three rendered side by side, one process each (numpy only).
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        rendered = list(pool.map(render_sequence, sequences.BATCH[1:]))
+    runs += [(name, *built) for name, built in zip(sequences.BATCH[1:],
+                                                   rendered)]
+    if any(r[1] != runs[0][1] for r in runs):
+        fail("batched: the sequences' configurations differ")
+    cfg = runs[0][1]
+    lengths = [len(r[3]) for r in runs]
+    print(f"[batched] {sum(lengths)} frames {lengths} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Host clocks around the engine's feed, and when the flushes train
+    # sequence 0's vocabulary (whole-map relocalization before that).
+    feed0, flush0 = multi.BatchedSlamSystem.feed, multi.BatchedSlamSystem.flush
+    stamps, flushes = [], []
+
+    def feed(self, *a, **k):
+        stamps.append(time.perf_counter())
+        feed0(self, *a, **k)
+
+    def flush(self):
+        flush0(self)
+        flushes.append((len(self.metrics[0]), self._vocab_trained_at[0] >= 0))
+
+    multi.BatchedSlamSystem.feed, multi.BatchedSlamSystem.flush = feed, flush
+    fc.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        eng = multi.run_sequences(cfg, [r[3] for r in runs])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        multi.BatchedSlamSystem.feed = feed0
+        multi.BatchedSlamSystem.flush = flush0
+    launches = dict(fc.LAUNCHES)
+    after = sum(max(0, n - WARMUP) for n in lengths)
+    agg_fps = after / (t_end - stamps[WARMUP])
+    vocab_from = min([c for c, trained in flushes if trained],
+                     default=lengths[0])
+    per_seq = {}
+    for s, (name, _, traj, frames) in enumerate(runs):
+        _, est = eng.trajectory(s)
+        rmse, _ = align.ate_rmse(
+            torch.from_numpy(est[:, 4:].astype(np.float32)),
+            torch.from_numpy(traj.poses_twc[:, 4:].astype(np.float32)))
+        if not np.all(np.isfinite(est)) or est.shape != (len(frames), 7):
+            fail(f"batched {name}: trajectory not finite or wrong shape "
+                 f"{est.shape}")
+        per_seq[name] = dict(ate_m=float(rmse), keyframes=eng.n_keyframes(s),
+                             points=eng.n_points(s),
+                             records=len(eng.metrics[s]),
+                             **sequences.batch_events(eng.metrics[s]))
+        if name == "kidnap":
+            per_seq[name]["pose_diff_vs_single_engine_m"] = float(
+                np.abs(est[:, 4:] - kidnap_est[:, 4:]).max())
+    n_global = sum(1 for i in per_seq["kidnap"]["reloc_frames"]
+                   if i < vocab_from)
+    report = dict(sequences=per_seq, frames=sum(lengths),
+                  aggregate_fps_after_warmup=agg_fps,
+                  single_engine_fps_after_warmup=single_fps,
+                  host_syncs_per_sequence_frame=sum(
+                      h.count for h in eng.sync) / sum(lengths),
+                  vocab_trained_from_frame=vocab_from,
+                  global_reloc_attempts=n_global, launches=launches, card=card,
+                  jax_reference=JAX_BATCHED)
+    print(f"[batched] {json.dumps(report)}", flush=True)
+    for name, got in per_seq.items():
+        ref = JAX_BATCHED[name]
+        n = lengths[sequences.BATCH.index(name)]
+        if got["records"] != n or len(eng.timestamps[
+                sequences.BATCH.index(name)]) != n:
+            fail(f"batched {name}: {got['records']} records for {n} frames")
+        for k in BATCH_EVENTS:
+            if got[k] != ref[k]:
+                fail(f"batched {name}: {k} {got[k]}, the JAX reference has "
+                     f"{ref[k]}")
+        bound = ATE_FACTOR * ref["ate_m"] + ATE_SLACK_M
+        if not got["ate_m"] <= bound:
+            fail(f"batched {name}: ATE {got['ate_m']:.5f} m above the bound "
+                 f"{bound:.5f} m")
+    for k in fc.FRONTEND_KERNELS:
+        if launches[k] != sum(lengths):
+            fail(f"batched: {k}: {launches[k]} launches, expected one per "
+                 f"active sequence-frame, {sum(lengths)}")
+    if launches["fused_match"] != n_global or n_global < 1:
+        fail(f"batched: fused_match launched {launches['fused_match']} times "
+             f"for {n_global} whole-map relocalization attempts")
+    return report
+
+
+def render_sequence(name):
+    """(cfg, trajectory, frames) of ``tools/sequences.py``'s ``name``."""
+    import sequences
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.io import synthetic
+
+    return sequences.build(name, SlamConfig, synthetic)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def timed_dgba(cfg, mesh, st, reps: int = 3):
+    """``distributed_global_ba`` on ``st`` after a warm-up: (new state,
+    (cost0, cost1, n_edges), median ms, host reads)."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.parallel.sharded_global_ba import (
+        distributed_global_ba,
+    )
+    from boslam_tpu_torch.tracking.tracker import HostSync
+
+    p = GBA_PROBLEM
+    distributed_global_ba(cfg, mesh, st, p["lm_iters"], p["cg_iters"])
+    times = []
+    for _ in range(reps):
+        sync = HostSync()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = distributed_global_ba(cfg, mesh, st, p["lm_iters"],
+                                           p["cg_iters"], sync=sync)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, stats, float(np.median(times)), sync.count
+
+
+def dgba_rank(rank: int, world: int, rdzv: str, out: str) -> None:
+    """One rank of phase 9b(ii), run as ``chip_smoke.py --dgba-rank RANK
+    WORLD RDZV OUT``: gloo over the one card, results saved to OUT."""
+    import numpy as np
+    import torch
+
+    os.environ.update(BOSLAM_COORDINATOR=f"file://{rdzv}",
+                      BOSLAM_NUM_PROCESSES=str(world),
+                      BOSLAM_PROCESS_ID=str(rank))
+    from boslam_tpu_torch.parallel.distributed import maybe_initialize
+    from boslam_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not maybe_initialize(device="cuda:0", backend="gloo", timeout=300.0):
+        sys.exit(3)
+    mesh = make_mesh()
+    cfg, st, _ = gba_problem(torch.device("cuda:0"))
+    new, (c0, c1, n_edges), ms, reads = timed_dgba(cfg, mesh, st)
+    np.savez(out, kf_pose=new.kf_pose.cpu().numpy(),
+             pt_xyz=new.pt_xyz.cpu().numpy(), cost0=c0, cost1=c1,
+             n_edges=n_edges, ms=ms, host_reads=reads,
+             pt=mesh.shape["pt"])
+    torch.distributed.destroy_process_group()
+
+
+def hold_dgba(what, got, c0, c1, n_edges, ref_state, ref_stats, kf_valid,
+              pt_valid):
+    """Distributed against single-device global BA, with
+    tests/test_parallel.py's tolerances.  Returns the largest errors."""
+    import numpy as np
+
+    kf = np.asarray(got["kf_pose"])
+    pt = np.asarray(got["pt_xyz"])
+    pose_err = float(np.abs(kf[:, 4:] - ref_state.kf_pose[:, 4:].cpu().numpy())
+                     [kf_valid].max())
+    point_err = float(np.linalg.norm(pt - ref_state.pt_xyz.cpu().numpy(),
+                                     axis=-1)[pt_valid].max())
+    ref_c0 = float(ref_stats.cost0)
+    if n_edges != int(ref_stats.n_edges):
+        fail(f"distributed global BA {what}: {n_edges} edges, the "
+             f"single-device solver has {int(ref_stats.n_edges)}")
+    if not abs(c0 - ref_c0) < DGBA_COST0_RTOL * max(ref_c0, 1.0):
+        fail(f"distributed global BA {what}: cost0 {c0} against {ref_c0}")
+    if not c1 < c0:
+        fail(f"distributed global BA {what}: cost {c0} -> {c1}")
+    if not pose_err < DGBA_POSE_ATOL_M:
+        fail(f"distributed global BA {what}: poses {pose_err} m apart")
+    if not point_err < DGBA_POINT_ATOL_M:
+        fail(f"distributed global BA {what}: points {point_err} m apart")
+    return pose_err, point_err
+
+
+def check_distributed_gba(dev, card):
+    """Phase 9b on phase 7a's problem.  Returns the report."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.parallel.distributed import (
+        maybe_initialize, runtime_info,
+    )
+    from boslam_tpu_torch.parallel.mesh import make_mesh
+    from boslam_tpu_torch.solvers.global_ba import global_bundle_adjustment
+
+    p = GBA_PROBLEM
+    cfg, st, _ = gba_problem(dev)
+    global_bundle_adjustment(cfg, st, p["lm_iters"], p["cg_iters"])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_state, ref_stats = global_bundle_adjustment(
+            cfg, st, p["lm_iters"], p["cg_iters"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms0 = float(np.median(times))
+    kf_valid = st.kf_valid.cpu().numpy()
+    pt_valid = st.pt_valid.cpu().numpy()
+
+    # (i) one rank over NCCL, in this process.
+    env = dict(BOSLAM_COORDINATOR=f"localhost:{free_port()}",
+               BOSLAM_NUM_PROCESSES="1", BOSLAM_PROCESS_ID="0")
+    os.environ.update(env)
+    try:
+        if not maybe_initialize(device="cuda:0"):
+            fail("distributed: the one-rank NCCL group did not come up")
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    info = runtime_info()
+    backend = torch.distributed.get_backend()
+    new, (c0, c1, n_edges), ms1, reads1 = timed_dgba(cfg, make_mesh(), st)
+    torch.distributed.destroy_process_group()
+    one = dict(kf_pose=new.kf_pose.cpu().numpy(),
+               pt_xyz=new.pt_xyz.cpu().numpy())
+    err1 = hold_dgba("one rank", one, c0, c1, n_edges, ref_state, ref_stats,
+                     kf_valid, pt_valid)
+
+    # (ii) two ranks on the one card over gloo, as subprocesses.
+    shutil.rmtree(DGBA_DIR, ignore_errors=True)
+    os.makedirs(DGBA_DIR)
+    rdzv = os.path.abspath(os.path.join(DGBA_DIR, "rdzv"))
+    outs = [os.path.join(DGBA_DIR, f"rank{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dgba-rank", str(r),
+         "2", rdzv, outs[r]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    for r, proc in enumerate(procs):
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("distributed global BA two ranks: timed out")
+        if proc.returncode != 0:
+            print(err[-3000:], flush=True)
+            fail(f"distributed global BA rank {r}: exit {proc.returncode}")
+    wall = time.perf_counter() - t0
+    ranks = [dict(np.load(o)) for o in outs]
+    for k in ("kf_pose", "pt_xyz", "cost0", "cost1", "n_edges"):
+        if not np.array_equal(ranks[0][k], ranks[1][k]):
+            fail(f"distributed global BA two ranks: {k} differs between ranks")
+    r0 = ranks[0]
+    if int(r0["pt"]) != 2:
+        fail(f"distributed global BA two ranks: pt={int(r0['pt'])}")
+    err2 = hold_dgba("two ranks", r0, float(r0["cost0"]), float(r0["cost1"]),
+                     int(r0["n_edges"]), ref_state, ref_stats, kf_valid,
+                     pt_valid)
+    report = dict(
+        card=card, runtime_info=info, backend=backend, edges=n_edges,
+        single_device=dict(cost0=float(ref_stats.cost0),
+                           cost1=float(ref_stats.cost1), ms=ms0,
+                           lm_iters_per_s=p["lm_iters"] / (ms0 / 1e3)),
+        one_rank=dict(cost0=c0, cost1=c1, ms=ms1,
+                      lm_iters_per_s=p["lm_iters"] / (ms1 / 1e3),
+                      host_reads=reads1, pose_err_m=err1[0],
+                      point_err_m=err1[1]),
+        two_ranks_gloo=dict(cost0=float(r0["cost0"]),
+                            cost1=float(r0["cost1"]),
+                            ms=[float(r["ms"]) for r in ranks],
+                            lm_iters_per_s=p["lm_iters"] / (float(r0["ms"]) / 1e3),
+                            host_reads=int(r0["host_reads"]),
+                            pose_err_m=err2[0], point_err_m=err2[1],
+                            ranks_bit_equal=True, wall_s=wall))
+    print(f"[dgba] {json.dumps(report)}", flush=True)
+    print("[note] dgba two_ranks_gloo: two processes on the ONE card, their "
+          "collectives over gloo, which stages the CUDA tensors through the "
+          "host; not a multi-card number", flush=True)
+    return report
+
+
+def check_cli_distributed():
+    """Phase 9c: ``--synthetic 60 --distributed --global-ba`` as one rank."""
+    import math
+
+    env = dict(os.environ, BOSLAM_COORDINATOR=f"localhost:{free_port()}",
+               BOSLAM_NUM_PROCESSES="1", BOSLAM_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "boslam_tpu_torch.main", "--synthetic",
+         str(CLI_FRAMES), "--distributed", "--global-ba", "--out",
+         os.path.join(CLI_DIR, "dist.txt")],
+        capture_output=True, text=True, timeout=600, env=env)
+    if res.returncode != 0:
+        print(res.stderr[-3000:], flush=True)
+        fail(f"CLI --distributed: exit {res.returncode}")
+    line = [x for x in res.stderr.splitlines() if x.startswith("[distributed]")]
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"[cli] --distributed --global-ba in {time.perf_counter() - t0:.1f} "
+          f"s: {line} {json.dumps(summary)}", flush=True)
+    if not line or "'initialized': True" not in line[0]:
+        fail("CLI --distributed: the process group did not come up")
+    if "global BA: cost" not in res.stderr:
+        fail("CLI --distributed: no global BA line")
+    if not math.isfinite(summary.get("ate_rmse_m", float("nan"))):
+        fail("CLI --distributed: no ATE")
+    return dict(summary=summary, distributed_line=line[0])
+
+
+def check_feed_batch(cfg, frames, est3, fc):
+    """Phase 9d: ``run_sequence(batch=8)`` on phase 3's frames."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.slam import run_sequence
+
+    fc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam = run_sequence(cfg, frames, batch=FEED_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    _, est = slam.trajectory()
+    diff = float(np.abs(est[:, 4:] - est3[:, 4:]).max())
+    report = dict(batch=FEED_BATCH, frames=len(frames), wall_s=wall,
+                  fps=len(frames) / wall, max_pose_diff_vs_phase3_m=diff,
+                  batch_mode_records=sum(1 for m in slam.metrics
+                                         if m.get("batch_mode")),
+                  launches=launches)
+    print(f"[feed_batch] {json.dumps(report)}", flush=True)
+    if not diff <= STREAM_POSE_ATOL_M:
+        fail(f"feed_batch: poses {diff} m from phase 3's")
+    for k in fc.FRONTEND_KERNELS:
+        if launches[k] != len(frames):
+            fail(f"feed_batch: {k}: {launches[k]} launches for "
+                 f"{len(frames)} frames")
+    return report
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--dgba-rank"]:
+        dgba_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -1087,6 +1505,7 @@ def main() -> None:
           f"{json.dumps(dict(sync_sites.most_common(12)))}", flush=True)
     fps = (N_FRAMES - WARMUP) / (t_end - stamps[WARMUP])
     ts, est = slam.trajectory()
+    est3 = est
     rmse, _ = align.ate_rmse(
         torch.from_numpy(est[:, 4:].astype(np.float32)),
         torch.from_numpy(traj.poses_twc[:, 4:].astype(np.float32)))
@@ -1116,21 +1535,42 @@ def main() -> None:
     if not ate <= bound:
         fail(f"ATE {ate:.5f} m above the bound {bound:.5f} m")
 
-    # ---- 4. kernel B3 against its plain version -----------------------------
-    match = check_matcher(dev, fast["floor"])
+    # ``loop``'s 320 frames render in a side process during phases 4 and 5;
+    # ``kidnap`` is phase 3's orbit with its blanks.
+    import concurrent.futures
+    import multiprocessing
 
-    # ---- 5, 6. relocalization and loop closing ------------------------------
-    for name in JAX_REFERENCE:
-        captured, restore = capture_first_match()
-        try:
-            report, slam, traj = run_events(name, fc)
-        finally:
-            restore()
-        if name == "kidnap":
-            match["launches"] = report["launches"]["fused_match"]
-            if match["launches"] < 1:
-                fail("kidnap: fused_match was never launched")
-            match.update(check_captured(captured, fast["floor"]))
+    t0 = time.perf_counter()
+    render_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        loop_built = render_pool.submit(render_sequence, "loop")
+
+        # ---- 4. kernel B3 against its plain version -------------------------
+        match = check_matcher(dev, fast["floor"])
+
+        # ---- 5, 6. relocalization and loop closing --------------------------
+        for name in JAX_REFERENCE:
+            if name == "kidnap":
+                built = kidnap_from_orbit(orbit_frames)
+            else:
+                built = loop_built.result()
+                print(f"[{name}] {len(built[2])} frames rendered aside, "
+                      f"ready {time.perf_counter() - t0:.1f} s after the "
+                      f"render began", flush=True)
+            captured, restore = capture_first_match()
+            try:
+                report, slam, traj = run_events(name, fc, built)
+            finally:
+                restore()
+            if name == "kidnap":
+                kidnap_est = slam.trajectory()[1]
+                match["launches"] = report["launches"]["fused_match"]
+                if match["launches"] < 1:
+                    fail("kidnap: fused_match was never launched")
+                match.update(check_captured(captured, fast["floor"]))
+    finally:
+        render_pool.shutdown(cancel_futures=True)
 
     # ---- 7. global BA ---------------------------------------------------------
     check_engine_gba(slam, traj)  # the engine of phase 6, ``loop``
@@ -1140,6 +1580,14 @@ def main() -> None:
     # ---- 8. asynchronous local mapping, the CLI ---------------------------------
     asy = check_async(cfg, orbit_traj, orbit_frames, fc, smi)
     check_cli()
+    print(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # ---- 9. the parallel layer ------------------------------------------------
+    bat = check_batched(orbit_frames, fc, fps, kidnap_est, smi)
+    check_distributed_gba(dev, smi)
+    check_cli_distributed()
+    fbat = check_feed_batch(cfg, orbit_frames, est3, fc)
 
     def bound_of(bytes_, ops):
         t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
@@ -1156,7 +1604,9 @@ def main() -> None:
          "ms": fast["ms"], "plain_ms": fast["plain"], "bound_ms": f_bound,
          "bound_by": f_by, "library_ms": None,
          "async_launches": asy["async"]["launches"]["fast_rank"],
-         "async_stream_launches": asy["stream"]["launches"]["fast_rank"]},
+         "async_stream_launches": asy["stream"]["launches"]["fast_rank"],
+         "batched_launches": bat["launches"]["fast_rank"],
+         "feed_batch_launches": fbat["launches"]["fast_rank"]},
         {"name": "extract_patches", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/describe_patches.cu",
          "replaces": "boslam_tpu/ops/frontend_pallas.py:195",
@@ -1164,7 +1614,9 @@ def main() -> None:
          "ms": patch["ms"], "plain_ms": patch["plain"], "bound_ms": p_bound,
          "bound_by": p_by, "library_ms": patch["lib"],
          "async_launches": asy["async"]["launches"]["extract_patches"],
-         "async_stream_launches": asy["stream"]["launches"]["extract_patches"]},
+         "async_stream_launches": asy["stream"]["launches"]["extract_patches"],
+         "batched_launches": bat["launches"]["extract_patches"],
+         "feed_batch_launches": fbat["launches"]["extract_patches"]},
         {"name": "fused_match", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/fused_match.cu",
          "replaces": "boslam_tpu/ops/hamming_pallas.py:145",
@@ -1180,7 +1632,8 @@ def main() -> None:
          "live_map_visible_columns": match["live_map_visible"],
          "captured_ms": match["captured_ms"],
          "captured_bound_ms": match["captured_bound"],
-         "captured_visible_columns": match["visible_columns"]},
+         "captured_visible_columns": match["visible_columns"],
+         "batched_launches": bat["launches"]["fused_match"]},
     ]
     print("[note] fast_rank: one launch over the 8 levels of one 640x480 "
           "frame (plain_ms: the plain version level by level); "
@@ -1188,7 +1641,9 @@ def main() -> None:
           "keypoints in one launch (plain_ms: extract_patches_plain -> "
           "orient_and_brief; library_ms: the 8 advanced-indexing gathers, "
           "patches only); launches from phase 3, async_launches and "
-          "async_stream_launches from phase 8a and 8b; fused_match: one call at "
+          "async_stream_launches from phase 8a and 8b, batched_launches from "
+          "phase 9a (four sequences, 310 sequence-frames), "
+          "feed_batch_launches from phase 9d; fused_match: one call at "
           "512 x 65536 without a window, 80% of the columns visible "
           "(bound_ms over the visible columns at the int8 rate; eager_ms: "
           "host ms per eager call), live_map_*: the lowest 600 slots "
@@ -1196,7 +1651,7 @@ def main() -> None:
           "launches from phase 5; ms, plain_ms "
           "and library_ms are device times from CUDA-graph replay",
           flush=True)
-    print(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f} s",
+    print(f"[time] phases 1-9 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -13,7 +13,9 @@ within 1e-4, descriptors exact wherever the angle bin agrees, bins differing
 only at a bin edge or at ill-conditioned moments: the moments' summation
 order differs); ``fused_match_top2`` indices, masks and matched distances
 exact; async mapping's CUDA-graph solve and its second-stream placement
-bit-equal to the eager solve and to the same-stream run."""
+bit-equal to the eager solve and to the same-stream run; the multi-sequence
+engine bit-equal to single engines on the card; one-rank distributed global
+BA within tests/test_parallel.py's tolerances of the single-device solver."""
 
 import numpy as np
 import pytest
@@ -279,3 +281,70 @@ def test_async_mapping_on_a_second_stream_matches_the_same_stream(cuda_device):
     for a, b in zip(list(eager[:-1]) + list(eager.stats),
                     list(replay[:-1]) + list(replay.stats)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_run_sequences_on_the_card_matches_single_engines(cuda_device):
+    """Two sequences of unequal length on the one card: each equals its
+    single engine's run on the card bit for bit, the finished sequence
+    leaves no record, and each frontend kernel runs once per active
+    sequence-frame."""
+    from boslam_tpu_torch.parallel.multi import run_sequences
+    from boslam_tpu_torch.slam import run_sequence
+
+    cfg = SlamConfig.from_dict(dict(
+        camera=dict(width=320, height=240, fx=130.0, fy=130.0, cx=160.0,
+                    cy=120.0),
+        orb=dict(n_features=256, n_levels=4),
+        map=dict(max_keyframes=32, max_points=4096)))
+    lengths = [16, 9]
+    frame_lists = [synthetic.render_sequence(cfg.camera,
+                                             synthetic.orbit_trajectory(
+                                                 n, radius=0.4 + 0.1 * s))
+                   for s, n in enumerate(lengths)]
+    fc.reset_launches()
+    eng = run_sequences(cfg, frame_lists)
+    assert all(m.kf_pose.is_cuda for m in eng.map)
+    for k in fc.FRONTEND_KERNELS:
+        assert fc.LAUNCHES[k] == sum(lengths)
+    for s, n in enumerate(lengths):
+        single = run_sequence(cfg, frame_lists[s], seed=s, chunk=8)
+        _, est = eng.trajectory(s)
+        _, est_one = single.trajectory()
+        assert len(eng.metrics[s]) == n
+        np.testing.assert_array_equal(est, est_one)
+        assert eng.n_keyframes(s) == single.n_keyframes
+
+
+@pytest.mark.cuda
+def test_one_rank_distributed_global_ba_on_the_card(cuda_device):
+    """``distributed_global_ba`` on a one-rank mesh on the card against the
+    single-device solver on a tracked map: the edge count exact, cost0
+    within 1e-2, cost1 < cost0, poses within 2 mm, points within 5 mm."""
+    from boslam_tpu_torch.geometry import se3
+    from boslam_tpu_torch.parallel.mesh import make_mesh
+    from boslam_tpu_torch.parallel.sharded_global_ba import (
+        distributed_global_ba,
+    )
+    from boslam_tpu_torch.slam import run_sequence
+    from boslam_tpu_torch.solvers.global_ba import global_bundle_adjustment
+
+    cfg = SlamConfig.from_dict(dict(
+        camera=dict(width=160, height=120, fx=70.0, fy=70.0, cx=80.0,
+                    cy=60.0),
+        orb=dict(n_features=128, n_levels=3),
+        map=dict(max_keyframes=16, max_points=2048)))
+    traj = synthetic.orbit_trajectory(15, radius=0.3, yaw_amplitude=0.15)
+    slam = run_sequence(cfg, synthetic.render_sequence(cfg.camera, traj))
+    st_a, stats = global_bundle_adjustment(cfg, slam.map, lm_iters=5,
+                                           cg_iters=30)
+    st_b, (c0, c1, n_edges) = distributed_global_ba(
+        cfg, make_mesh(1), slam.map, lm_iters=5, cg_iters=30)
+    assert st_b.kf_pose.is_cuda
+    assert n_edges == int(stats.n_edges) > 100
+    assert abs(c0 - float(stats.cost0)) < 1e-2 * max(float(stats.cost0), 1.0)
+    assert c1 < c0
+    _, dt = se3.pose_distance(st_a.kf_pose, st_b.kf_pose)
+    assert float(dt[slam.map.kf_valid].max()) < 2e-3
+    perr = (st_a.pt_xyz - st_b.pt_xyz).norm(dim=-1)[slam.map.pt_valid]
+    assert float(perr.max()) < 5e-3

@@ -133,6 +133,54 @@ def test_resize_replica_close_to_jax():
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
 
 
+# Pixels of the port's pyramid that differ from the reference's, and the
+# largest difference in ulps, at levels 0-7 of frame 0 of ``orbit`` and frame
+# 24 of ``loop`` (tools/sequences.py).  The reference's XLA CPU dot splits its
+# sums into blocks and kernels that no summation order of the port's
+# reproduces, and its compiled weights round differently from any numpy
+# replica tried, so the pyramids are not bit-equal (ROADMAP C1 lists the
+# variants tried and their counts); these counts, the port's at the time,
+# are the bound it must stay under.
+PYRAMID_DIFF_BOUND = {
+    ("orbit", 0): [(0, 0), (90888, 5), (85851, 6), (61334, 6), (44270, 43),
+                   (33271, 51), (24407, 36), (17387, 24)],
+    ("loop", 24): [(0, 0), (89896, 6), (85003, 6), (60379, 6), (43495, 46),
+                   (32932, 48), (24159, 54), (17179, 41)],
+}
+
+
+@pytest.mark.parametrize("name,index", sorted(PYRAMID_DIFF_BOUND))
+def test_pyramid_against_jax_image_resize(name, index):
+    """``build_pyramid`` against the reference's pyramid (``jax.image.resize``
+    compiled for the CPU) at all 8 levels of a full-width frame: the count of
+    differing pixels and the largest ulp difference stay within the bound."""
+    import sys
+
+    sys.path.insert(0, str(tp.ROOT / "tools"))
+    import sequences
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.io import synthetic
+    from boslam_tpu_torch.slam import to_gray_u8
+
+    cfg, _, fr = sequences.build(name, SlamConfig, synthetic,
+                                 n_frames=index + 1)
+    gray = to_gray_u8(fr[index][1]).astype(np.float32)
+    cfg_j, _ = tp.configs(sequences.SEQUENCES[name]["cfg"])
+    ref = [np.asarray(l) for l in _jax_levels(jnp.asarray(gray), cfg_j)]
+    got = frontend.build_pyramid(torch.from_numpy(gray), cfg)
+    assert len(got) == len(ref) == 8
+    counts = []
+    for a, b in zip(got, ref):
+        a = a.numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+        ulp = np.abs(a.view(np.int32).astype(np.int64)
+                     - b.view(np.int32).astype(np.int64))
+        counts.append((int((ulp > 0).sum()), int(ulp.max())))
+    for lvl, ((n, u), (n_max, u_max)) in enumerate(
+            zip(counts, PYRAMID_DIFF_BOUND[(name, index)])):
+        assert n <= n_max and u <= u_max, (lvl, counts)
+
+
 def test_orient_and_brief_matches_jax():
     """Descriptor sampling by gather equals the reference's one-hot einsums
     (exact selections); angles agree to float rounding."""

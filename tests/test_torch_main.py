@@ -99,3 +99,74 @@ def test_cli_mapping_device_needs_a_card(tmp_path):
                      env={"CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
     assert "CUDA" in res.stderr.strip().splitlines()[-1]
+
+
+def _run_both(module, patch, runs):
+    """Each argv of ``runs`` through ``MODULE.main`` in turn, in ONE
+    subprocess (the JAX CLI compiles its frame step once), with ``patch``
+    run first; returns each run's stdout and stderr."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import io, sys, contextlib, dataclasses, json\n"
+        f"{patch}\n"
+        f"from {module}.main import main\n"
+        "outs = []\n"
+        f"for argv in {[[str(a) for a in r] for r in runs]!r}:\n"
+        "    o, e = io.StringIO(), io.StringIO()\n"
+        "    sys.argv = ['main', *argv]\n"
+        "    with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):\n"
+        "        main()\n"
+        "    outs.append((o.getvalue(), e.getvalue()))\n"
+        "print(json.dumps(outs))\n"
+    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tp.ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_cli_resume_feeds_again_like_jax_cli(tmp_path):
+    """``--synthetic 10 --checkpoint-every 1`` then ``--resume``, on both
+    CLIs at 160x120, each from its own checkpoint: the port's restored
+    engine is fed the sequence again from frame 0, as the reference's is,
+    so its summary's frames (checkpoint frames + 10), keyframes and lost
+    frames equal the JAX CLI's (the JAX engine's keyframe count is printed
+    by a wrapper of its ``trajectory``)."""
+    n = 10
+    cam = f"C.TUM_FR1 = dataclasses.replace(C.TUM_FR1, **{tp.TUM_MINI_CAM!r})"
+    first = ["--synthetic", n, "--checkpoint-every", 1]
+    port = _run_both(
+        "boslam_tpu_torch", f"import boslam_tpu_torch.config as C; {cam}",
+        [first + ["--device", "cpu", "--out", tmp_path / "a.txt",
+                  "--checkpoint-dir", tmp_path / "ck_t"],
+         ["--synthetic", n, "--device", "cpu", "--out", tmp_path / "b.txt",
+          "--resume", tmp_path / "ck_t"]])
+    got = json.loads(port[1][0].strip().splitlines()[-1])
+    jax = _run_both(
+        "boslam_tpu",
+        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+        f"import boslam_tpu.config as C; {cam}\n"
+        "import boslam_tpu.slam as S\n"
+        "_tr = S.SlamSystem.trajectory\n"
+        "def trajectory(self):\n"
+        "    print('KEYFRAMES', self.n_keyframes, file=sys.stderr)\n"
+        "    return _tr(self)\n"
+        "S.SlamSystem.trajectory = trajectory",
+        [first + ["--out", tmp_path / "ja.txt",
+                  "--checkpoint-dir", tmp_path / "ck_j"],
+         ["--synthetic", n, "--out", tmp_path / "jb.txt",
+          "--resume", tmp_path / "ck_j"]])
+    want = json.loads(jax[1][0].strip().splitlines()[-1])
+    frames = int(re.findall(r"wrote (\d+) poses", jax[1][1])[-1])
+    kfs = int(re.findall(r"KEYFRAMES (\d+)", jax[1][1])[-1])
+    assert "resumed from" in port[1][1] and "resumed from" in jax[1][1]
+    assert n < frames < 2 * n
+    assert got["frames"] == frames
+    assert got["n_frames"] == want["n_frames"] == n
+    assert got["keyframes"] == kfs
+    assert got["lost"] == want["n_lost"]
+    assert np.isfinite(got["ate_rmse_m"])

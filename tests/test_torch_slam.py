@@ -409,6 +409,53 @@ def test_convert_round_trips_uint32_bits(kind):
         to_port({k: v for k, v in d.items() if k != next(iter(d))}, "cpu")
 
 
+def test_feed_batch_matches_feed_and_jax_batches():
+    """``feed_batch`` (one stacked copy of 4 frames, then the frame step on
+    views of it) equals ``feed`` of the same frames with the same flush
+    points bit for bit, and its records carry ``batch_mode`` instead of a
+    latency; ``run_sequence(batch=4)`` is within the engine tolerance of
+    JAX's ``run_sequence(batch=4)``."""
+    from boslam_tpu.slam import run_sequence as j_run_sequence
+
+    d = {"camera": dict(width=160, height=120, fx=70.0, fy=70.0, cx=80.0,
+                        cy=60.0),
+         "orb": dict(n_features=128, n_levels=3)}
+    cfg_j, cfg_t = tp.configs(d)
+    traj = synthetic.orbit_trajectory(14, radius=0.3, yaw_amplitude=0.15)
+    frames = synthetic.render_sequence(cfg_t.camera, traj)
+    batched = SlamSystem(cfg_t, chunk=8, device="cpu")
+    single = SlamSystem(cfg_t, chunk=8, device="cpu")
+    for i in range(0, 12, 4):
+        batched.feed_batch(frames[i:i + 4])
+        for f in frames[i:i + 4]:
+            single.feed(*f)
+        assert len(batched._pending_rows) == len(single._pending_rows)
+    for f in frames[12:]:
+        batched.feed(*f)
+        single.feed(*f)
+    _, est_b = batched.trajectory()
+    _, est_s = single.trajectory()
+    np.testing.assert_array_equal(est_b, est_s)
+    assert batched.sync.count == single.sync.count
+    for i, (mb, ms) in enumerate(zip(batched.metrics, single.metrics)):
+        assert ("dt_ms" in mb, mb.get("batch_mode")) == (i >= 12, i < 12 or None)
+        mb.pop("batch_mode", None)
+        assert {k: v for k, v in mb.items() if k != "dt_ms"} == \
+            {k: v for k, v in ms.items() if k != "dt_ms"}
+
+    got = run_sequence(cfg_t, frames, batch=4, device="cpu")
+    ref = j_run_sequence(cfg_j, frames, batch=4)
+    assert _kf_frames(got) == _kf_frames(ref)
+    assert [m.get("batch_mode", False) for m in got.metrics] == \
+        [m.get("batch_mode", False) for m in ref.metrics]
+    _, est = got.trajectory()
+    _, est_ref = ref.trajectory()
+    np.testing.assert_array_less(
+        np.linalg.norm(est[:, 4:] - est_ref[:, 4:], axis=1), POSE_ATOL_M)
+    np.testing.assert_array_equal(est, est_s)
+    assert got.n_keyframes == ref.n_keyframes
+
+
 def test_import_leaves_out_jax_and_the_jax_package():
     code = (
         "import pkgutil, sys, boslam_tpu_torch\n"

@@ -232,8 +232,9 @@ def test_cli_checkpoint_resume_metrics_profile_viz(tmp_path):
     """The CLI on tum_mini with ``--async-mapping --checkpoint-every 1
     --metrics --metrics-tb --profile --viz``: one JSONL line per frame, a
     TensorBoard event file, a trace in the profile dir, a PNG and a
-    checkpoint; then ``--resume`` from it: the run goes on after the
-    checkpoint's last frame, loses none, and writes the whole trajectory."""
+    checkpoint; then ``--resume`` from it: as the reference's CLI does, the
+    restored engine is fed the sequence again from its first frame, loses
+    none, and writes the checkpoint's poses followed by the new ones."""
     ck, prof, tb = tmp_path / "ck", tmp_path / "prof", tmp_path / "tb"
     common = ("--tum", tp.TUM_MINI, "--device", "cpu", "--async-mapping")
     res = tp.run_cli(*common, "--out", tmp_path / "a.txt",
@@ -257,10 +258,12 @@ def test_cli_checkpoint_resume_metrics_profile_viz(tmp_path):
                      "--metrics", tmp_path / "m2.jsonl")
     assert f"resumed from {ck}" in res.stderr
     summary = json.loads(res.stdout.strip().splitlines()[-1])
-    assert summary["frames"] == 6 and summary["lost"] == 0
-    assert summary["n_frames"] == 6 - n_saved
-    assert len(open(tmp_path / "m2.jsonl").readlines()) == 6 - n_saved
+    assert summary["frames"] == n_saved + 6 and summary["lost"] == 0
+    assert summary["n_frames"] == 6
+    assert len(open(tmp_path / "m2.jsonl").readlines()) == 6
     assert summary["ate_rmse_m"] < 0.05
-    _, first = tum.load_trajectory(str(tmp_path / "a.txt"))
-    _, resumed = tum.load_trajectory(str(tmp_path / "b.txt"))
-    assert resumed.shape == first.shape == (6, 7)
+    ts_a, first = tum.load_trajectory(str(tmp_path / "a.txt"))
+    ts_b, resumed = tum.load_trajectory(str(tmp_path / "b.txt"))
+    assert first.shape == (6, 7) and resumed.shape == (n_saved + 6, 7)
+    np.testing.assert_array_equal(ts_b[:n_saved], ts_a[:n_saved])
+    np.testing.assert_array_equal(ts_b[n_saved:], ts_a)

@@ -15,6 +15,7 @@ stay the run's own).  ``--async-mapping`` runs the engine with
         [--sequence orbit|hall|kidnap|loop|survey] [--loops] [--global-ba]
         [--async-mapping] [--seed S] [--frames N] [--out traj.npy]
     JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --ba-problem
+    JAX_PLATFORMS=cpu python tools/jax_reference_ate.py --batched
 
 Prints one JSON line: ATE (m), keyframes, points, lost frames,
 keyframe-event frame indices, the frames with a relocalization attempt and
@@ -27,6 +28,12 @@ ATE after global BA, its costs and its edge count.
 keyframes, 50000 points, 512 observations per keyframe; 6 LM and 40 CG
 iterations) and prints its edges, landmarks, costs and largest pose error
 against ground truth.
+
+``--batched`` runs instead ``parallel.multi.run_sequences`` on the four
+sequences of ``sequences.BATCH`` (``kidnap`` and the three ``batch_``
+orbits, unequal in length) over a 4-device 'seq' mesh of the CPU, and
+prints one JSON line with each sequence's ATE, keyframes, points and
+events (``sequences.batch_events``).
 """
 
 from __future__ import annotations
@@ -63,9 +70,15 @@ def main() -> None:
                     help="defer local BA to the flushes (async mapping)")
     ap.add_argument("--ba-problem", action="store_true",
                     help="run the bench's synthetic global-BA problem")
+    ap.add_argument("--batched", action="store_true",
+                    help="run the four sequences of sequences.BATCH with "
+                         "parallel.multi.run_sequences")
     args = ap.parse_args()
     if args.ba_problem:
         ba_problem()
+        return
+    if args.batched:
+        batched()
         return
 
     import jax.numpy as jnp
@@ -128,6 +141,40 @@ def main() -> None:
         **gba,
         "seconds": time.perf_counter() - t0,
     }))
+
+
+def batched() -> None:
+    """``run_sequences`` over ``sequences.BATCH`` on a 4-device CPU mesh."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=4").strip()
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from boslam_tpu.config import SlamConfig
+    from boslam_tpu.geometry import align
+    from boslam_tpu.io import synthetic
+    from boslam_tpu.parallel.multi import run_sequences, seq_mesh
+
+    built = [sequences.build(n, SlamConfig, synthetic)
+             for n in sequences.BATCH]
+    cfg = built[0][0]
+    assert all(b[0] == cfg for b in built)
+    t0 = time.perf_counter()
+    eng = run_sequences(cfg, [b[2] for b in built],
+                        mesh=seq_mesh(len(built)))
+    out = {}
+    for s, (name, (_, traj, _)) in enumerate(zip(sequences.BATCH, built)):
+        _, est = eng.trajectory(s)
+        rmse, _ = align.ate_rmse(jnp.asarray(est[:, 4:]),
+                                 jnp.asarray(traj.poses_twc[:, 4:]))
+        out[name] = dict(ate_m=float(rmse), keyframes=eng.n_keyframes(s),
+                         points=eng.n_points(s),
+                         **sequences.batch_events(eng.metrics[s]))
+    print(json.dumps({"batched": list(sequences.BATCH), "sequences": out,
+                      "seconds": time.perf_counter() - t0}))
 
 
 def ba_problem() -> None:

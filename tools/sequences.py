@@ -22,6 +22,11 @@ other.
 * ``loop``: the first 320 frames of ``hall``.  With loops on, the JAX
   reference closes one loop there (at the keyframe of frame 291, verified
   one flush late).
+* ``batch_a``, ``batch_b``, ``batch_c``: three more orbits at ``kidnap``'s
+  configuration, unequal in length as real TUM runs are (radius 0.5 / 0.7
+  / 0.6 m, yaw amplitude 0.3 / 0.2 / 0.4, render seeds 1 / 2 / 3, 90 / 60
+  / 40 frames).  With ``kidnap`` they are the four sequences that
+  ``chip_smoke.py`` phase 9a runs on one card (``BATCH``).
 * ``survey``: the bench's engine-built global-BA map
   (``bench.py:bench_tracked_global_ba``): a 400-frame survey of a room at
   scale 3.0 with the wide-FOV VGA camera (depth range 30 m), 1024
@@ -75,6 +80,17 @@ SEQUENCES = {
         render=dict(depth_noise=0.01, seed=5, room_scale=3.0),
     ),
 }
+for _name, _r, _yaw, _seed, _n in (("batch_a", 0.5, 0.3, 1, 90),
+                                   ("batch_b", 0.7, 0.2, 2, 60),
+                                   ("batch_c", 0.6, 0.4, 3, 40)):
+    SEQUENCES[_name] = dict(
+        cfg=SEQUENCES["kidnap"]["cfg"],
+        trajectory=("orbit_trajectory",
+                    dict(n_frames=_n, radius=_r, yaw_amplitude=_yaw)),
+        render=dict(depth_noise=0.01, seed=_seed),
+    )
+# The sequences of one multi-sequence run (``parallel.multi.run_sequences``).
+BATCH = ("kidnap", "batch_a", "batch_b", "batch_c")
 # The closed orbit of tests/test_slam_e2e.py's loop test at full width
 # closes no loop in the JAX reference, in one lap or two (its consistent
 # candidates stay under the 77-inlier gate of 512 features), so ``loop`` is
@@ -105,3 +121,22 @@ def build(name: str, config_cls, synthetic, n_frames: int | None = None):
         traj.timestamps = traj.timestamps[:n_frames]
     frames = synthetic.render_sequence(cfg.camera, traj, **seq["render"])
     return cfg, traj, blank_frames(frames, seq.get("blank", ()))
+
+
+def batch_events(metrics, ST_LOST: int = 2):
+    """Per-sequence events of a multi-sequence run from its records (which
+    carry the status after each frame but no relocalization fields): a frame
+    that starts lost attempts relocalization, and succeeds when it ends
+    tracking."""
+    status = [m["status"] for m in metrics]
+    reloc = [i for i in range(1, len(status)) if status[i - 1] == ST_LOST]
+    return {
+        "frames": len(metrics),
+        "lost_frames": [i for i, m in enumerate(metrics) if m["lost"]],
+        "reloc_frames": reloc,
+        "reloc_ok_frames": [i for i in reloc if status[i] != ST_LOST],
+        "loop_closed_frames": [i for i, m in enumerate(metrics)
+                               if m.get("event") == "loop_closed"],
+        "kf_event_frames": [i for i, m in enumerate(metrics)
+                            if m.get("event") in ("init", "keyframe")],
+    }
