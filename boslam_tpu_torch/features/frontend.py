@@ -334,3 +334,9 @@ def extract_features_from_levels(levels, depth, cfg: SlamConfig) -> FrameFeature
 def extract_features(gray, depth, cfg: SlamConfig) -> FrameFeatures:
     """gray: [H, W] f32 in [0, 255]; depth: f32 metres (0 = invalid)."""
     return extract_features_from_levels(build_pyramid(gray, cfg), depth, cfg)
+
+
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """Host-side u8 RGB -> f32 gray in [0, 255] (ITU-R BT.601, cv2-compatible)."""
+    rgb = rgb.astype(np.float32)
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]

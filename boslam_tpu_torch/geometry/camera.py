@@ -11,6 +11,13 @@ import torch
 from boslam_tpu_torch.config import CameraConfig
 
 
+def intrinsics(cam: CameraConfig, device=None):
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+        device=device,
+    )
+
+
 def project(cam: CameraConfig, xc):
     """Camera-frame points [..., 3] -> pixel coords [..., 2] (u, v).
 

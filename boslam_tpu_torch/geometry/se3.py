@@ -19,6 +19,12 @@ import torch
 # ---------------------------------------------------------------------------
 
 
+def quat_identity(shape=(), device=None):
+    q = torch.zeros(tuple(shape) + (4,), device=device)
+    q[..., 0] = 1.0
+    return q
+
+
 def quat_normalize(q):
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
                            min=1e-12)
@@ -142,6 +148,14 @@ def make_pose(q, t):
     return torch.cat([q.expand(batch + (4,)), t.expand(batch + (3,))], dim=-1)
 
 
+def rotation(p):
+    return p[..., :4]
+
+
+def translation(p):
+    return p[..., 4:]
+
+
 def pose_apply(p, x):
     """Apply pose(s) to points ``x[..., 3]``: R x + t."""
     return quat_rotate(p[..., :4], x) + p[..., 4:]
@@ -157,6 +171,19 @@ def pose_compose(a, b):
 def pose_inv(p):
     qi = quat_conj(p[..., :4])
     return make_pose(qi, -quat_rotate(qi, p[..., 4:]))
+
+
+def pose_to_mat(p):
+    """[..., 7] -> homogeneous [..., 4, 4]."""
+    m = torch.zeros(p.shape[:-1] + (4, 4), dtype=p.dtype, device=p.device)
+    m[..., :3, :3] = quat_to_mat(p[..., :4])
+    m[..., :3, 3] = p[..., 4:]
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def mat_to_pose(m):
+    return make_pose(mat_to_quat(m[..., :3, :3]), m[..., :3, 3])
 
 
 def _so3_left_jacobian(omega):

@@ -6,7 +6,9 @@ covisibility pairs + loop edges, residual ``r = log(T_meas^-1 · T_i · T_j^-1)`
 The per-edge 6x12 Jacobians are closed-form (the reference takes them from
 ``jax.jacfwd`` under ``vmap``); the normal equations are assembled dense
 ([6K, 6K]) with gauge fixing by row masking and solved by Cholesky for
-``pg_iters`` damped GN iterations.
+``pg_iters`` damped GN iterations.  The blocks are summed over a fixed
+gather of each block's edges (``_block_sum``), never by float atomics, so
+a closure gives the same poses on every run.
 """
 
 from __future__ import annotations
@@ -143,6 +145,29 @@ def edge_jacobians(Ti, Tj, t_meas):
             -_left_jacobian_inv(-r))
 
 
+def _block_sum_plan(keys: torch.Tensor, rows: torch.Tensor):
+    """Group ``rows`` (indices into a value tensor) by ``keys`` for
+    ``_block_sum``: (the distinct keys [U], each key's rows [U, L] in row
+    order, padded with -1).  One host read (L, the largest group)."""
+    order = torch.argsort(keys, stable=True)
+    uk, counts = torch.unique_consecutive(keys[order], return_counts=True)
+    width = int(counts.max()) if counts.numel() else 0
+    j = torch.arange(width, device=keys.device)
+    pos = torch.clamp((torch.cumsum(counts, 0) - counts)[:, None] + j,
+                      max=max(keys.numel() - 1, 0))
+    return uk, torch.where(j < counts[:, None], rows[order][pos], -1)
+
+
+def _block_sum(vals: torch.Tensor, plan, n: int) -> torch.Tensor:
+    """[n, ...] sums of ``vals`` rows grouped by ``plan``, absent keys 0; the
+    same order of additions on every run."""
+    uk, rows = plan
+    out = vals.new_zeros((n,) + vals.shape[1:])
+    padded = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
+    out[uk] = padded[rows].sum(1)
+    return out
+
+
 def optimize_pose_graph(
     cfg: SlamConfig, poses, kf_valid, edges: PoseGraphEdges, fixed_mask
 ):
@@ -160,6 +185,17 @@ def optimize_pose_graph(
     w = torch.where(edges.valid, edges.weight, 0.0)
     m = torch.repeat_interleave(free.to(torch.float32), 6)
     eye = torch.eye(K * 6, device=dev)
+    # Block (a, b) of edge e sits in row (a, b) * E + e of the stacked
+    # values; edges of weight 0 add nothing and are left out.
+    E = w.shape[0]
+    live = torch.nonzero(w != 0).squeeze(1)
+    ends = (ia, ib)
+    h_plan = _block_sum_plan(
+        torch.cat([ends[a][live] * K + ends[b][live]
+                   for a in (0, 1) for b in (0, 1)]),
+        torch.cat([(2 * a + b) * E + live for a in (0, 1) for b in (0, 1)]))
+    b_plan = _block_sum_plan(torch.cat([ia[live], ib[live]]),
+                             torch.cat([live, E + live]))
 
     for _ in range(cfg.loop.pg_iters):
         Ti = poses[ci]
@@ -167,14 +203,13 @@ def optimize_pose_graph(
         r = _edge_residual(edges.t_meas, Ti, Tj)                # [E, 6]
         Ji, Jj = edge_jacobians(Ti, Tj, edges.t_meas)           # [E, 6, 6] x2
 
-        # Assemble dense H and b by block scatter-add.
-        H = torch.zeros((K, K, 6, 6), device=dev)
-        b = torch.zeros((K, 6), device=dev)
-        for Ja, xa in ((Ji, ia), (Jj, ib)):
-            b.index_add_(0, xa, -torch.einsum("eri,e,er->ei", Ja, w, r))
-            for Jb, xb in ((Ji, ia), (Jj, ib)):
-                Hb = torch.einsum("eri,e,erj->eij", Ja, w, Jb)
-                H.index_put_((xa, xb), Hb, accumulate=True)
+        # Assemble dense H and b by block sums.
+        J = (Ji, Jj)
+        b = _block_sum(torch.cat([-torch.einsum("eri,e,er->ei", Ja, w, r)
+                                  for Ja in J]), b_plan, K)
+        H = _block_sum(torch.cat([torch.einsum("eri,e,erj->eij", Ja, w, Jb)
+                                  for Ja in J for Jb in J]),
+                       h_plan, K * K).reshape(K, K, 6, 6)
 
         Hf = H.permute(0, 2, 1, 3).reshape(K * 6, K * 6)
         Hf = Hf * m[:, None] * m[None, :] + torch.diag(1.0 - m)

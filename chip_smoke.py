@@ -30,7 +30,8 @@ Phases, each fatal on failure:
      on it;
   6. ``loop``: a full-width sequence on which the JAX reference closes a
      loop; the port must close as many, with the ATE within the bound (the
-     keyframe it closes at is printed beside the reference's).
+     keyframe it closes at is printed beside the reference's).  The run is
+     phase 10's stream pass, right after phase 5.
   Phases 5 and 6 also time the rare events on the card, synchronized.
   7. global BA: (a) the bench's synthetic problem at full width (256
      keyframes, 50000 points, 512 observations each, rng seed 0): edges and
@@ -71,6 +72,18 @@ Phases, each fatal on failure:
      ``run_sequence(batch=8)`` (``feed_batch``) on phase 3's frames: every
      pose within 1e-6 m of phase 3's, one launch per frame of each frontend
      kernel.
+ 10. the bench's path (``boslam_tpu_torch.bench``'s phase functions) on
+     ``loop``'s frames in the wire format (run after phase 5, before phase
+     7b takes its stream pass's engine), with ``hall``'s configuration
+     (``bench._tracking_cfg``): one stream pass with loops on (the ATE
+     within the bound of the JAX reference's, 1 loop, 0 lost frames, one
+     launch per frame of each frontend kernel), one ``batch=16`` pass (every
+     pose within 1e-6 m of the stream pass's), a pass with loops off (the
+     ATE within the bound of the reference's loop-off ATE), the device pass
+     (``utils.timing.frame_device_ms`` over 20 frames) and the stage
+     timings, every printed share at most 1; then ``bench_global_ba`` at 50k
+     landmarks, edges and landmarks exactly phase 7a's.  Prints the bench's
+     primary line.
 
 Prints the ``kernels`` JSON line, the card line and, last, the device JSON.
 Exits non-zero without a result when no CUDA device is visible or the port
@@ -177,6 +190,11 @@ JAX_BATCHED = {
 }
 BATCH_EVENTS = ("lost_frames", "reloc_frames", "reloc_ok_frames",
                 "loop_closed_frames")
+# Phase 10: the JAX reference on ``loop`` with loop verification off
+# (MAX_VERIFY = 0), ``JAX_PLATFORMS=cpu python tools/jax_reference_ate.py
+# --sequence loop``: 27 keyframes, 1041 points, 0 lost frames, 0 loops.
+JAX_REFERENCE_LOOP_OFF_ATE_M = 0.1299504041671753
+BENCH_DEVICE_WARM, BENCH_DEVICE_FRAMES = 40, 20
 # Phase 9b: tests/test_parallel.py's tolerances for distributed global BA.
 DGBA_COST0_RTOL, DGBA_POSE_ATOL_M, DGBA_POINT_ATOL_M = 1e-2, 2e-3, 5e-3
 DGBA_DIR = os.path.join("build", "smoke_dgba")
@@ -568,16 +586,14 @@ def timed_events():
 
 
 def run_events(name, fc, built):
-    """Phases 5 and 6: a named sequence with lost frames or loops, every
-    frame synchronized and timed, held to the JAX reference's events.
+    """Phase 5: a named sequence with lost frames, every frame synchronized
+    and timed, held to the JAX reference's events (``hold_events``).
     ``built``: the sequence's (cfg, trajectory, frames)."""
     import numpy as np
     import torch
 
-    from boslam_tpu_torch.geometry import align
     from boslam_tpu_torch.slam import SlamSystem
 
-    ref = JAX_REFERENCE[name]
     cfg, traj, frames = built
     events, restore = timed_events()
     fc.reset_launches()
@@ -592,17 +608,39 @@ def run_events(name, fc, built):
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         slam.flush()
-        _, est = slam.trajectory()
         torch.cuda.synchronize()
     finally:
         restore()
-    launches = dict(fc.LAUNCHES)
+    reloc = [i for i, r in enumerate(slam.metrics) if "reloc_ok" in r]
+    report = hold_events(name, slam, traj, len(frames), dict(fc.LAUNCHES),
+                         fc, ready, dict(
+                             reloc_frame_ms={str(i): frame_ms[i] for i in reloc},
+                             event_ms=dict(events),
+                             frame_ms_median=float(np.median(frame_ms))))
+    return report, slam, traj
+
+
+def hold_events(name, slam, traj, n_frames, launches, fc, ready=None,
+                extra=None):
+    """Phases 5 and 6: the events of ``slam``'s run over sequence ``name``
+    (relocalizations, their paths by ``ready``, each frame's
+    ``vocab_ready``; lost frames; closed loops), its ATE and the kernels'
+    ``launches`` over its ``n_frames``, held to the JAX reference's.
+    Returns the report (``extra`` added)."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch.geometry import align
+
+    ref = JAX_REFERENCE[name]
+    _, est = slam.trajectory()
     m = slam.metrics
     reloc = [i for i, r in enumerate(m) if "reloc_ok" in r]
     got = dict(
         reloc_frames=reloc,
         reloc_ok_frames=[i for i in reloc if m[i]["reloc_ok"]],
-        reloc_paths=["bow" if ready[i] else "global" for i in reloc],
+        reloc_paths=["unknown" if ready is None else
+                     "bow" if ready[i] else "global" for i in reloc],
         lost_frames=[i for i, r in enumerate(m) if r["lost"]],
         n_loops_closed=slam.n_loops_closed,
         loop_closed_frames=[i for i, r in enumerate(m)
@@ -615,11 +653,9 @@ def run_events(name, fc, built):
     n_global = got["reloc_paths"].count("global")
     report = dict(got, ate_m=ate, jax_reference_ate_m=ref["ate_m"],
                   launches=launches, global_reloc_attempts=n_global,
-                  reloc_frame_ms={str(i): frame_ms[i] for i in reloc},
-                  event_ms={k: v for k, v in events.items()},
-                  frame_ms_median=float(np.median(frame_ms)))
+                  **(extra or {}))
     print(f"[{name}] {json.dumps(report)}", flush=True)
-    if not np.all(np.isfinite(est)) or est.shape != (len(frames), 7):
+    if not np.all(np.isfinite(est)) or est.shape != (n_frames, 7):
         fail(f"{name}: trajectory not finite or wrong shape {est.shape}")
     for k, v in got.items():
         if k in REPORTED_ONLY:
@@ -632,13 +668,13 @@ def run_events(name, fc, built):
     if not ate <= bound:
         fail(f"{name}: ATE {ate:.5f} m above the bound {bound:.5f} m")
     for k in fc.FRONTEND_KERNELS:
-        if launches[k] != len(frames):
+        if launches[k] != n_frames:
             fail(f"{name}: {k}: {launches[k]} launches, expected one per "
-                 f"frame, {len(frames)}")
+                 f"frame, {n_frames}")
     if launches["fused_match"] != n_global:
         fail(f"{name}: fused_match launched {launches['fused_match']} times "
              f"for {n_global} whole-map relocalization attempts")
-    return report, slam, traj
+    return report
 
 
 def gba_problem(dev):
@@ -1430,6 +1466,84 @@ def check_feed_batch(cfg, frames, est3, fc):
     return report
 
 
+def check_bench(loop_built, fc, card):
+    """Phases 6 and 10: the bench's phase functions on ``loop``'s frames at
+    full width; phase 6's checks hold the stream pass's engine.  Returns
+    (report, {kernel: launches} of the stream and batch passes, the stream
+    pass's engine)."""
+    import numpy as np
+    import torch
+
+    from boslam_tpu_torch import bench
+
+    cfg, traj, raw = loop_built
+    if cfg != bench._tracking_cfg(2):
+        fail("bench: loop's configuration is not the bench's _tracking_cfg")
+    frames = [bench._wire(cfg, *f) for f in raw]
+    events, restore = timed_events()
+    fc.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        extras, engines = bench.bench_tracking(
+            cfg, frames, traj, budget=bench.Budget(900.0), device="cuda",
+            n_passes=1, n_batch_passes=1)
+    finally:
+        restore()
+    launches = dict(fc.LAUNCHES)
+    # Phase 6: the stream pass against the JAX reference's events.
+    hold_events("loop", engines["stream"], traj, len(frames),
+                {k: extras[f"{k}_launches_per_frame"] * len(frames)
+                 for k in launches}, fc,
+                extra=dict(event_ms=dict(events), fps=extras["fps_stream"]))
+    _, est_s = engines["stream"].trajectory()
+    _, est_b = engines["batch"].trajectory()
+    batch_diff = float(np.abs(est_s[:, 4:] - est_b[:, 4:]).max())
+    stream_ate = bench._ate(engines["stream"], traj)
+    extras.update(bench.bench_error_budget_cheap(cfg, frames, traj,
+                                                 device="cuda"))
+    kf_rate = sum(1 for r in engines["stream"].metrics
+                  if r.get("event") == "keyframe") / len(frames)
+    extras.update(bench.bench_device_path(
+        cfg, frames, warm=BENCH_DEVICE_WARM, kf_events_per_frame=kf_rate,
+        device="cuda", n_frames=BENCH_DEVICE_FRAMES))
+    extras.update(bench.bench_stages(engines["stream"], frames))
+    gba = bench.bench_global_ba(GBA_PROBLEM["n_pts"], device="cuda")
+    print(f"[bench] {json.dumps(bench._line(dict(extras, card=card)))}",
+          flush=True)
+    report = dict(stream_ate_m=stream_ate, batch_pose_diff_m=batch_diff,
+                  launches=launches, global_ba=gba)
+    print(f"[bench] phase 10: {json.dumps(report)}", flush=True)
+
+    bound = ATE_FACTOR * JAX_REFERENCE["loop"]["ate_m"] + ATE_SLACK_M
+    if not stream_ate <= bound:
+        fail(f"bench: stream ATE {stream_ate:.5f} m above the bound {bound:.5f}")
+    bound = ATE_FACTOR * JAX_REFERENCE_LOOP_OFF_ATE_M + ATE_SLACK_M
+    if not extras["ate_loop_off_m"] <= bound:
+        fail(f"bench: loop-off ATE {extras['ate_loop_off_m']:.5f} m above "
+             f"the bound {bound:.5f}")
+    if extras["loops_closed"] != 1 or extras["lost_frames"]:
+        fail(f"bench: {extras['loops_closed']} loops, "
+             f"{extras['lost_frames']} lost frames")
+    if not batch_diff <= STREAM_POSE_ATOL_M:
+        fail(f"bench: the batch pass's poses {batch_diff} m from the stream's")
+    for k in fc.FRONTEND_KERNELS:
+        if extras[f"{k}_launches_per_frame"] != 1.0 or \
+                launches[k] != 2 * len(frames):
+            fail(f"bench: {k}: {extras[f'{k}_launches_per_frame']} launches "
+                 f"per frame, {launches[k]} in the stream and batch passes")
+    shares = {k: v for k, v in extras.items()
+              if "_util_" in k or k == "device_idle_share"}
+    if "step_util_flops" not in shares or len(shares) < 8:
+        fail(f"bench: shares missing, got {sorted(shares)}")
+    if not all(0.0 <= v <= 1.0 for v in shares.values()):
+        fail(f"bench: a share outside [0, 1]: {shares}")
+    for k, ref in (("ba_edges", JAX_GBA["n_edges"]),
+                   ("ba_landmarks", JAX_GBA["n_landmarks"])):
+        if gba[k] != ref:
+            fail(f"bench: global BA {k} {gba[k]}, phase 7a's is {ref}")
+    return report, launches, engines["stream"]
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--dgba-rank"]:
         dgba_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -1549,38 +1663,37 @@ def main() -> None:
         # ---- 4. kernel B3 against its plain version -------------------------
         match = check_matcher(dev, fast["floor"])
 
-        # ---- 5, 6. relocalization and loop closing --------------------------
-        for name in JAX_REFERENCE:
-            if name == "kidnap":
-                built = kidnap_from_orbit(orbit_frames)
-            else:
-                built = loop_built.result()
-                print(f"[{name}] {len(built[2])} frames rendered aside, "
-                      f"ready {time.perf_counter() - t0:.1f} s after the "
-                      f"render began", flush=True)
-            captured, restore = capture_first_match()
-            try:
-                report, slam, traj = run_events(name, fc, built)
-            finally:
-                restore()
-            if name == "kidnap":
-                kidnap_est = slam.trajectory()[1]
-                match["launches"] = report["launches"]["fused_match"]
-                if match["launches"] < 1:
-                    fail("kidnap: fused_match was never launched")
-                match.update(check_captured(captured, fast["floor"]))
+        # ---- 5. relocalization ----------------------------------------------
+        captured, restore = capture_first_match()
+        try:
+            report, slam, _ = run_events("kidnap", fc,
+                                         kidnap_from_orbit(orbit_frames))
+        finally:
+            restore()
+        kidnap_est = slam.trajectory()[1]
+        match["launches"] = report["launches"]["fused_match"]
+        if match["launches"] < 1:
+            fail("kidnap: fused_match was never launched")
+        match.update(check_captured(captured, fast["floor"]))
+        loop_frames = loop_built.result()
+        print(f"[loop] {len(loop_frames[2])} frames rendered aside, ready "
+              f"{time.perf_counter() - t0:.1f} s after the render began",
+              flush=True)
     finally:
         render_pool.shutdown(cancel_futures=True)
 
+    # ---- 6, 10. loop closing on the bench's path --------------------------------
+    _, bench_launches, slam = check_bench(loop_frames, fc, smi)
+
     # ---- 7. global BA ---------------------------------------------------------
-    check_engine_gba(slam, traj)  # the engine of phase 6, ``loop``
+    check_engine_gba(slam, loop_frames[1])  # the engine of phase 6, ``loop``
     del slam
     check_global_ba(dev, smi)
 
     # ---- 8. asynchronous local mapping, the CLI ---------------------------------
     asy = check_async(cfg, orbit_traj, orbit_frames, fc, smi)
     check_cli()
-    print(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f} s",
+    print(f"[time] phases 1-8 and 10 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     # ---- 9. the parallel layer ------------------------------------------------
@@ -1606,7 +1719,8 @@ def main() -> None:
          "async_launches": asy["async"]["launches"]["fast_rank"],
          "async_stream_launches": asy["stream"]["launches"]["fast_rank"],
          "batched_launches": bat["launches"]["fast_rank"],
-         "feed_batch_launches": fbat["launches"]["fast_rank"]},
+         "feed_batch_launches": fbat["launches"]["fast_rank"],
+         "bench_launches": bench_launches["fast_rank"]},
         {"name": "extract_patches", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/describe_patches.cu",
          "replaces": "boslam_tpu/ops/frontend_pallas.py:195",
@@ -1616,7 +1730,8 @@ def main() -> None:
          "async_launches": asy["async"]["launches"]["extract_patches"],
          "async_stream_launches": asy["stream"]["launches"]["extract_patches"],
          "batched_launches": bat["launches"]["extract_patches"],
-         "feed_batch_launches": fbat["launches"]["extract_patches"]},
+         "feed_batch_launches": fbat["launches"]["extract_patches"],
+         "bench_launches": bench_launches["extract_patches"]},
         {"name": "fused_match", "route": "cuda",
          "source": "boslam_tpu_torch/csrc/fused_match.cu",
          "replaces": "boslam_tpu/ops/hamming_pallas.py:145",
@@ -1633,7 +1748,8 @@ def main() -> None:
          "captured_ms": match["captured_ms"],
          "captured_bound_ms": match["captured_bound"],
          "captured_visible_columns": match["visible_columns"],
-         "batched_launches": bat["launches"]["fused_match"]},
+         "batched_launches": bat["launches"]["fused_match"],
+         "bench_launches": bench_launches["fused_match"]},
     ]
     print("[note] fast_rank: one launch over the 8 levels of one 640x480 "
           "frame (plain_ms: the plain version level by level); "
@@ -1643,7 +1759,8 @@ def main() -> None:
           "patches only); launches from phase 3, async_launches and "
           "async_stream_launches from phase 8a and 8b, batched_launches from "
           "phase 9a (four sequences, 310 sequence-frames), "
-          "feed_batch_launches from phase 9d; fused_match: one call at "
+          "feed_batch_launches from phase 9d, bench_launches from phase 10's "
+          "stream and batch passes (640 frames); fused_match: one call at "
           "512 x 65536 without a window, 80% of the columns visible "
           "(bound_ms over the visible columns at the int8 rate; eager_ms: "
           "host ms per eager call), live_map_*: the lowest 600 slots "
@@ -1651,7 +1768,7 @@ def main() -> None:
           "launches from phase 5; ms, plain_ms "
           "and library_ms are device times from CUDA-graph replay",
           flush=True)
-    print(f"[time] phases 1-9 in {time.perf_counter() - t_start:.1f} s",
+    print(f"[time] phases 1-10 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -192,6 +192,15 @@ def test_orient_and_brief_matches_jax():
     np.testing.assert_array_equal(d.numpy().view(np.uint32), np.asarray(d_ref))
 
 
+def test_rgb_to_gray_matches_jax():
+    from boslam_tpu.features.frontend import rgb_to_gray as jax_gray
+
+    rgb = np.random.default_rng(4).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    got = frontend.rgb_to_gray(rgb)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, jax_gray(rgb))
+
+
 def test_grid_select_ties_match_jax():
     """Integer ranks tie everywhere; the stable-sort top-k must pick JAX's
     indices (torch.topk does not)."""

@@ -33,7 +33,7 @@ def _poses(rng, n):
 @pytest.mark.parametrize("name", [
     "quat_mul", "quat_rotate", "quat_to_mat", "pose_compose", "pose_inv",
     "pose_apply", "exp", "log", "retract", "so3_log", "hat", "mat_to_quat",
-    "pose_distance",
+    "pose_distance", "rotation", "translation", "pose_to_mat", "mat_to_pose",
 ])
 def test_se3_matches_jax(rng, name):
     p, xi = _poses(rng, 64)
@@ -54,12 +54,30 @@ def test_se3_matches_jax(rng, name):
         "hat": [(x,)],
         "mat_to_quat": [(np.array(j_se3.quat_to_mat(jnp.asarray(p[:, :4]))),)],
         "pose_distance": [(p, q)],
+        "rotation": [(p,)],
+        "translation": [(p,)],
+        "pose_to_mat": [(p,)],
+        "mat_to_pose": [(np.array(j_se3.pose_to_mat(jnp.asarray(p))),)],
     }[name]
     for a in args:
         ref = getattr(j_se3, name)(*map(jnp.asarray, a))
         got = getattr(se3, name)(*map(torch.from_numpy, a))
         for g, r in zip(got, ref) if isinstance(ref, tuple) else [(got, ref)]:
             _close(g, r)
+
+
+@pytest.mark.parametrize("shape", [(), (5,), (2, 3)])
+def test_quat_identity_matches_jax(shape):
+    got = se3.quat_identity(shape)
+    assert got.dtype == torch.float32 and got.shape == shape + (4,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_se3.quat_identity(shape)))
+
+
+def test_intrinsics_matches_jax():
+    cfg_j, cfg_t = tp.configs(tp.E2E)
+    got = camera.intrinsics(cfg_t.camera)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_cam.intrinsics(cfg_j.camera)))
 
 
 def test_camera_matches_jax(rng):

@@ -222,6 +222,23 @@ def test_edge_jacobians_match_jax():
     np.testing.assert_allclose(Jj.numpy(), np.asarray(Jj_r), atol=POSE)
 
 
+def test_block_sum_matches_index_add():
+    """The pose graph's block sums: index_add's sums over the chosen rows,
+    absent keys zero, the same bits on a second call."""
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(rng.integers(0, 7, 40))
+    vals = torch.from_numpy(rng.normal(size=(40, 6, 6)).astype(np.float32))
+    sel = torch.arange(0, 40, 3)
+    plan = pg._block_sum_plan(keys[sel], sel)
+    got = pg._block_sum(vals, plan, 9)
+    want = torch.zeros(9, 6, 6, dtype=torch.float64).index_add_(
+        0, keys[sel], vals[sel].double())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    assert torch.equal(got, pg._block_sum(vals, plan, 9))
+    empty = pg._block_sum_plan(keys[:0], sel[:0])
+    assert torch.equal(pg._block_sum(vals, empty, 9), torch.zeros(9, 6, 6))
+
+
 def test_optimize_pose_graph_matches_jax(lc):
     cfg_j, cfg_t, jmap, _, _, reqs = lc
     jm, t_rel = _with_loop_edge(jmap, reqs)

@@ -9,10 +9,11 @@ measures two ways:
    the keyframe event's map ops, local BA) is wrapped in a host clock that
    ends in ``torch.cuda.synchronize()``, so a stage's time includes the
    device work it queued.  These synchronizations are the tool's own.
-2. ``torch.profiler`` over a window of frames without those wrappers:
-   wall time per frame, device busy time (the sum of kernel times on the
-   one stream, copies included), the device's idle share, device
-   operations per frame and those that take the most device time.
+2. ``torch.profiler`` over a window of frames without those wrappers
+   (``boslam_tpu_torch.utils.timing.frame_device_ms``): wall time per
+   frame, device busy time (the sum of kernel times on the one stream,
+   copies included), the device's idle share, device operations and host
+   syncs per frame and the kernels that take the most device time.
 
     python tools/torch_profile.py [--sequence orbit] [--frames 40]
         [--warmup 10] [--out DIR]
@@ -110,50 +111,34 @@ def stage_times(cfg, frames, warmup):
 
 
 def profile_window(cfg, frames, warmup, top):
-    """torch.profiler over the frames after ``warmup``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``utils.timing.frame_device_ms`` over the frames after ``warmup``."""
     from boslam_tpu_torch.slam import SlamSystem
+    from boslam_tpu_torch.utils.timing import frame_device_ms
 
     slam = SlamSystem(cfg)
     for f in frames[:warmup]:
         slam.feed(*f)
-    slam.flush()
-    torch.cuda.synchronize()
-    n = len(frames) - warmup
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in frames[warmup:]:
-            slam.feed(*f)
-        slam.flush()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    res = frame_device_ms(slam, frames[warmup:])
+    rows = sorted(res["by_kernel"].items(), key=lambda kv: -kv[1][1])
     summary = {
-        "frames": n,
-        "wall_ms_per_frame": wall_ms / n,
-        "device_busy_ms_per_frame": busy_us / 1e3 / n,
-        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-        "kernel_launches_per_frame": len(kernels) / n,
-        "distinct_kernels": len(by_name),
+        "frames": len(frames) - warmup,
+        "wall_ms_per_frame": res["wall_ms"],
+        "device_busy_ms_per_frame": res["device_busy_ms"],
+        "device_idle_share": res["device_idle_share"],
+        "kernel_launches_per_frame": res["device_ops"],
+        "host_syncs_per_frame": res["host_syncs"],
+        "distinct_kernels": len(rows),
     }
     # The port's own kernels (csrc/*.cu), wherever they rank.
     summary["own_kernels"] = {
-        name: {"launches_per_frame": cnt / n, "device_ms_per_frame": us / 1e3 / n}
-        for name, (cnt, us) in rows
+        name: {"launches_per_frame": cnt, "device_ms_per_frame": ms}
+        for name, (cnt, ms) in rows
         if any(k in name for k in ("fast_rank_kernel", "describe_patches_kernel",
                                    "match_tiles_kernel", "merge_tiles_kernel"))
     }
     table = [f"{'kernel':90s} {'launches/frame':>14s} {'ms/frame':>10s}"]
-    for name, (cnt, us) in rows[:top]:
-        table.append(f"{name[:90]:90s} {cnt / n:14.2f} {us / 1e3 / n:10.4f}")
+    for name, (cnt, ms) in rows[:top]:
+        table.append(f"{name[:90]:90s} {cnt:14.2f} {ms:10.4f}")
     return summary, "\n".join(table)
 
 
@@ -186,13 +171,10 @@ def main() -> None:
     with open(os.path.join(args.out, "torch_profile.txt"), "w") as fh:
         fh.write(table + "\n")
     print(table, flush=True)
-    import subprocess
+    from boslam_tpu_torch.utils.timing import card
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "card": card,
+        "card": card()[0],
         "synchronized": {
             "frames": n,
             "frame_ms_mean": float(np.mean(frame_ms)),
