@@ -28,8 +28,10 @@ config and frames (or its problem) and returns a dict:
    floor) and on a render without depth noise.  ``--error-budget`` runs
    instead the full sweep (``bench_error_budget_full``: noise 0 and 2.5 %,
    depth on the wire at stride 1 and 2, and loops off).
-5. ``bench_stages``: per-stage ms and shares of the card
-   (``utils.timing.stage_timings``).
+5. ``bench_stages``: the frame step's stages from the engine's own spans
+   (``HostSync``) over a live pass: each span's host ms, and on the card
+   the device ms, operations and idle ms launched or spent inside it
+   (``utils.timing.attribute``) over a window under the profiler.
 6. ``bench_tracked_global_ba``: the 400-frame ``survey`` drives the engine
    to a large map (1024 features, 65536 points, no redundancy culling);
    global BA runs on that map: LM iterations/s and ATE before and after.
@@ -70,7 +72,7 @@ DEVICE_FRAMES = 32   # frames under the profiler in the device pass
 PHASE_EST = {
     "device_path": 60.0,
     "global_ba_50k": 15.0,
-    "stages": 30.0,
+    "stages": 45.0,
     "tracked_ba": 180.0,
 }
 
@@ -518,14 +520,48 @@ def bench_error_budget_full(traj, *, device=None) -> dict:
     return out
 
 
-def bench_stages(slam, frames) -> dict:
-    """Phase 5: ``utils.timing.stage_timings`` on the middle frame against
-    ``slam``'s live state."""
-    from boslam_tpu_torch.utils.timing import stage_timings
+def bench_stages(cfg, frames, *, warm: int, device=None,
+                 n_frames: int = DEVICE_FRAMES) -> dict:
+    """Phase 5: an engine with its span recorder on, fed ``frames[:warm]``
+    and then ``n_frames`` more, under ``torch.profiler`` on the card.
+    ``stages_host_ms``: each span's median host ms over the frames fed
+    outside the profiler (all of them on the CPU), the first frame's first
+    calls left out; ``stages_per_frame``: how often it opens a frame over
+    those frames.  On the card, per profiled frame: ``stages_device_ms``
+    and ``stages_device_ops``, the device work launched with the span
+    innermost, and ``stages_idle_ms``, the device's idle time while it was
+    innermost on the host (``utils.timing.profile_spans``)."""
+    from boslam_tpu_torch.slam import SlamSystem
+    from boslam_tpu_torch.utils import timing
 
-    _, gray, d16 = frames[len(frames) // 2]
-    depth = d16.astype(np.float32) / slam.cfg.camera.depth_factor
-    out = stage_timings(slam, gray.astype(np.float32), depth)
+    on_card = torch.device(device).type == "cuda"
+    slam = SlamSystem(cfg, device=device, trace=True)
+    untraced = frames[:warm] if on_card else frames[:warm + n_frames]
+    for f in untraced:
+        slam.feed(*f)
+    slam.flush()
+    host: dict = {}
+    for s in slam.sync.drain():
+        if s.request > 0:
+            host.setdefault(s.name, []).append((s.t1 - s.t0) / 1e6)
+    n_host = max(len(untraced) - 1, 1)
+    out = {"stages_host_ms": {k: float(np.median(v)) for k, v in host.items()},
+           "stages_per_frame": {k: len(v) / n_host for k, v in host.items()}}
+    window = frames[warm:warm + n_frames] if on_card else []
+    if window:
+        def run():
+            for f in window:
+                slam.feed(*f)
+            slam.flush()
+
+        got = timing.profile_spans(run, slam.sync)
+        n = len(window)
+        ops = got["ops_by_span"]
+        out.update(
+            stages_device_ms={k: v[1] * 1e3 / n for k, v in ops.items()},
+            stages_device_ops={k: v[0] / n for k, v in ops.items()},
+            stages_idle_ms={k: v * 1e3 / n
+                            for k, v in got["idle_by_span"].items()})
     print("[bench] stages: " + json.dumps(out), file=sys.stderr)
     return out
 
@@ -692,14 +728,12 @@ def main(argv=None) -> None:
                     budget.skipped.append("error_budget_noise0")
                 extras.update(bench_error_budget_cheap(
                     cfg, frames, traj, noise0=noise0, device=device))
-        if args.no_stages:
-            pass
-        elif not on_card:
-            budget.skipped.append("stages")
-        elif budget.allow("stages", PHASE_EST["stages"]):
+        if not args.no_stages and budget.allow("stages",
+                                               PHASE_EST["stages"]):
             with budget.timed("stages"):
-                extras.update(bench_stages(engines[extras["fps_mode"]],
-                                           frames))
+                extras.update(bench_stages(
+                    cfg, frames, warm=min(warm_n, len(frames) // 2),
+                    device=device))
         if not args.no_tracked_ba and budget.allow(
                 "tracked_ba", PHASE_EST["tracked_ba"]):
             with budget.timed("tracked_ba"):

@@ -55,7 +55,8 @@ def main() -> None:
     ap.add_argument("--resume", type=str, default=None,
                     help="checkpoint directory to resume from")
     ap.add_argument("--profile", type=str, default=None,
-                    help="torch.profiler trace logdir")
+                    help="torch.profiler trace logdir; the engine's spans "
+                         "go beside the trace, on its clock (spans.json)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: cuda, which must exist)")
@@ -160,7 +161,8 @@ def main() -> None:
 
     slam = SlamSystem(cfg, seed=args.seed, device=args.device,
                       async_mapping=args.async_mapping,
-                      mapping_device=args.mapping_device, ba_mesh=ba_mesh)
+                      mapping_device=args.mapping_device, ba_mesh=ba_mesh,
+                      trace=bool(args.profile))
     if args.resume:
         # As the reference's CLI does: the restored engine is fed the
         # sequence again from its first frame.
@@ -169,7 +171,7 @@ def main() -> None:
               f"{len(slam.timestamps)} frames", file=sys.stderr)
 
     last_ckpt_kf = slam.n_keyframes
-    with profile_trace(args.profile) as step:
+    with profile_trace(args.profile, slam.sync) as step:
         for i, (ts, rgb, depth) in enumerate(frames):
             slam.process_frame(ts, rgb, depth)
             step()

@@ -174,9 +174,10 @@ def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
     """
     sync = HostSync() if sync is None else sync
     dev = img.device
-    gray = img.to(torch.float32)
-    depth = depth_u16.to(torch.float32) * (1.0 / cfg.camera.depth_factor)
-    feats = extract_features(gray, depth, cfg)
+    with sync.span("frame.frontend"):
+        gray = img.to(torch.float32)
+        depth = depth_u16.to(torch.float32) * (1.0 / cfg.camera.depth_factor)
+        feats = extract_features(gray, depth, cfg)
     n = cfg.orb.n_features
 
     row = torch.zeros((OUT_DIM,), device=dev)
@@ -187,50 +188,57 @@ def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
     status = sync.value(track.status)
     if status == ST_UNINIT:
         # First frame: init the map from RGBD depth.
-        mp = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        ok = torch.zeros((n,), dtype=torch.bool, device=dev)
-        map_state, _ = map_ops.insert_keyframe(
-            cfg, map_state, feats, se3.pose_identity(device=dev), mp, ok,
-            track.frame_idx,
-        )
-        track = track._replace(
-            status=torch.full((), ST_OK, dtype=torch.int32, device=dev),
-            frame_idx=track.frame_idx + 1,
-        )
+        with sync.span("frame.init"):
+            mp = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            ok = torch.zeros((n,), dtype=torch.bool, device=dev)
+            map_state, _ = map_ops.insert_keyframe(
+                cfg, map_state, feats, se3.pose_identity(device=dev), mp, ok,
+                track.frame_idx,
+            )
+            track = track._replace(
+                status=torch.full((), ST_OK, dtype=torch.int32, device=dev),
+                frame_idx=track.frame_idx + 1,
+            )
         row[O_KF] = 1.0
         row[O_KFID] = 0.0
     elif status == ST_OK:
-        track, out = track_frame(cfg, map_state, track, feats, sync)
-        map_state = map_ops.update_track_stats(
-            cfg, map_state, out.visible, out.match_pt, out.match_ok
-        )
+        with sync.span("frame.track"):
+            track, out = track_frame(cfg, map_state, track, feats, sync)
+            map_state = map_ops.update_track_stats(
+                cfg, map_state, out.visible, out.match_pt, out.match_ok
+            )
         # A saturated pool evicts inside the event; the guard covers only
         # degenerate pools (< 3 live keyframes: root and latest protected).
         can_kf = out.need_kf & ~out.lost & (
             ~torch.all(map_state.kf_valid) | (torch.sum(map_state.kf_valid) >= 3)
         )
         if sync.flag(can_kf):
-            st, evict_info = map_ops.evict_for_slot(cfg, map_state)
-            st, kf_id = map_ops.insert_keyframe(
-                cfg, st, feats, out.pose_cw, out.match_pt, out.match_ok,
-                track.frame_idx,
-            )
-            st = map_ops.fuse_new_keyframe(cfg, st, kf_id)
-            st = map_ops.refresh_point_model(cfg, st, kf_id)
-            st = map_ops.cull_points(cfg, st, update_covis=False)
-            if inline_ba:
-                st, ba = local_bundle_adjustment(cfg, st, kf_id)
-                row[O_BA0] = ba.cost0
-                row[O_BA1] = ba.cost1
-                row[O_BAE] = ba.n_edges.to(torch.float32)
-            # One cull record per row: a saturation eviction is reported and
-            # the redundancy cull skipped this event.
-            if sync.flag(evict_info[0] >= 0):
-                cull_info = evict_info
-            else:
-                st, cull_info = map_ops.cull_one_keyframe(cfg, st)
-            loop_state = compute_bow(cfg, loop_state, st, kf_id)
-            loop_state, det = detect_loop(cfg, loop_state, st, kf_id)
+            with sync.span("frame.keyframe"):
+                with sync.span("keyframe.map"):
+                    st, evict_info = map_ops.evict_for_slot(cfg, map_state)
+                    st, kf_id = map_ops.insert_keyframe(
+                        cfg, st, feats, out.pose_cw, out.match_pt,
+                        out.match_ok, track.frame_idx,
+                    )
+                    st = map_ops.fuse_new_keyframe(cfg, st, kf_id)
+                    st = map_ops.refresh_point_model(cfg, st, kf_id)
+                    st = map_ops.cull_points(cfg, st, update_covis=False)
+                if inline_ba:
+                    with sync.span("keyframe.local_ba"):
+                        st, ba = local_bundle_adjustment(cfg, st, kf_id)
+                    row[O_BA0] = ba.cost0
+                    row[O_BA1] = ba.cost1
+                    row[O_BAE] = ba.n_edges.to(torch.float32)
+                # One cull record per row: a saturation eviction is
+                # reported and the redundancy cull skipped this event.
+                with sync.span("keyframe.cull_kf"):
+                    if sync.flag(evict_info[0] >= 0):
+                        cull_info = evict_info
+                    else:
+                        st, cull_info = map_ops.cull_one_keyframe(cfg, st)
+                with sync.span("keyframe.bow_loop"):
+                    loop_state = compute_bow(cfg, loop_state, st, kf_id)
+                    loop_state, det = detect_loop(cfg, loop_state, st, kf_id)
             map_state = st
             track = track._replace(
                 last_kf=kf_id,
@@ -248,8 +256,9 @@ def frame_step_core(cfg: SlamConfig, map_state, loop_state, track, key,
         row[O_NVIS] = out.n_visible.to(torch.float32)
         row[O_LOST] = out.lost.to(torch.float32)
     elif status == ST_LOST:
-        track, good, n_inl = relocalize(cfg, map_state, loop_state, track,
-                                        feats, key, sync)
+        with sync.span("frame.relocalize"):
+            track, good, n_inl = relocalize(cfg, map_state, loop_state,
+                                            track, feats, key, sync)
         row[O_NINL] = n_inl.to(torch.float32)
         row[O_RELOC] = torch.where(good, 2.0, 1.0)
     else:
@@ -329,6 +338,10 @@ class SlamSystem:
     ``pt`` axis, global BA (``run_global_ba`` and the loop-closure hook)
     runs landmark-sharded over those ranks
     (``parallel.sharded_global_ba``); every rank must call it.
+
+    ``trace`` turns on ``sync``'s span recorder (``HostSync``): a ``frame``
+    span per frame, named by its index, over the frame step's stages and
+    the flush's events; the caller drains ``sync``.
     """
 
     # Max consistent candidates verified per drain; extras are dropped
@@ -337,7 +350,7 @@ class SlamSystem:
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, chunk: int = 16,
                  device=None, async_mapping: bool = False,
-                 mapping_device=None, ba_mesh=None):
+                 mapping_device=None, ba_mesh=None, trace: bool = False):
         self.cfg = cfg
         self.ba_mesh = ba_mesh
         self.device = resolve_device(device)
@@ -357,7 +370,7 @@ class SlamSystem:
         self.track = init_track_state(self.device)
         # Drawn from by relocalization and loop verification (RANSAC).
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.sync = HostSync()
+        self.sync = HostSync(trace)
         self.timestamps: List[float] = []
         self.poses_twc: List[np.ndarray] = []
         # Per frame: (ref kf slot, kf_seq at record time, T_cur_ref [7]).
@@ -395,17 +408,25 @@ class SlamSystem:
         grayscale image; ``depth`` f32 metres or u16 at the camera
         depth_factor."""
         t0 = time.perf_counter()
-        img, depth = wire_frame(self.cfg, rgb, depth)
-        self.map, self.loop, self.track, row = frame_step_core(
-            self.cfg, self.map, self.loop, self.track, self.generator,
-            self._upload(img), self._upload(depth), self.sync,
-            not self.async_mapping,
-        )
-        self._pending_rows.append(row)
-        self._pending_ts.append(ts)
-        self._pending_t0.append(t0)
-        if len(self._pending_rows) >= self.chunk:
-            self.flush()
+        sync = self.sync
+        with sync.span("frame", self._n_fed()):
+            with sync.span("frame.upload"):
+                img, depth = wire_frame(self.cfg, rgb, depth)
+                img, depth = self._upload(img), self._upload(depth)
+            self.map, self.loop, self.track, row = frame_step_core(
+                self.cfg, self.map, self.loop, self.track, self.generator,
+                img, depth, sync, not self.async_mapping,
+            )
+            del img, depth  # the frame's device copy goes before the flush
+            self._pending_rows.append(row)
+            self._pending_ts.append(ts)
+            self._pending_t0.append(t0)
+            if len(self._pending_rows) >= self.chunk:
+                self.flush()
+
+    def _n_fed(self) -> int:
+        """Frames fed to this engine so far: the next frame's index."""
+        return len(self.timestamps) + len(self._pending_rows)
 
     def feed_batch(self, batch) -> None:
         """Feed a list of ``(ts, rgb, depth)`` frames through ONE stacked,
@@ -424,14 +445,19 @@ class SlamSystem:
         """
         if not batch:
             return
-        wires = [wire_frame(self.cfg, rgb, depth) for _, rgb, depth in batch]
-        imgs = self._upload(np.stack([w[0] for w in wires]))
-        d16s = self._upload(np.stack([w[1] for w in wires]))
+        sync = self.sync
+        with sync.span("frame.upload", self._n_fed()):
+            wires = [wire_frame(self.cfg, rgb, depth)
+                     for _, rgb, depth in batch]
+            imgs = self._upload(np.stack([w[0] for w in wires]))
+            d16s = self._upload(np.stack([w[1] for w in wires]))
         for i, (ts, _, _) in enumerate(batch):
-            self.map, self.loop, self.track, row = frame_step_core(
-                self.cfg, self.map, self.loop, self.track, self.generator,
-                imgs[i], d16s[i], self.sync, not self.async_mapping,
-            )
+            with sync.span("frame", self._n_fed()):
+                self.map, self.loop, self.track, row = frame_step_core(
+                    self.cfg, self.map, self.loop, self.track,
+                    self.generator, imgs[i], d16s[i], sync,
+                    not self.async_mapping,
+                )
             self._pending_rows.append(row)
             self._pending_ts.append(ts)
             self._pending_t0.append(None)
@@ -441,12 +467,17 @@ class SlamSystem:
     # ------------------------------------------------------------------
     def flush(self) -> None:
         """Drain pending frames: ONE packed readback, then host events."""
+        with self.sync.span("flush", max(self._n_fed() - 1, 0)):
+            self._flush()
+
+    def _flush(self) -> None:
         if not self._pending_rows:
             # End of stream: land the last solves, close the last loop.
             self._merge_pending_ba()
             self._resolve_pending_verify()
             return
-        rows = torch.stack(self._pending_rows).cpu().numpy()
+        with self.sync.span("flush.readback"):
+            rows = torch.stack(self._pending_rows).cpu().numpy()
         ts_list, t0_list = self._pending_ts, self._pending_t0
         self._pending_rows, self._pending_ts, self._pending_t0 = [], [], []
         t_drain = time.perf_counter()
@@ -515,7 +546,8 @@ class SlamSystem:
                 and n_kf - self._vocab_trained_at >= lc.vocab_refresh_kf)
         )
         if due:
-            self.loop = train_vocab(self.cfg, self.loop, self.map)
+            with self.sync.span("flush.vocab"):
+                self.loop = train_vocab(self.cfg, self.loop, self.map)
             self._vocab_trained_at = n_kf
         # Resolve the previous drain's verification batch (at most one
         # closure), then dispatch this drain's candidates.
@@ -524,7 +556,8 @@ class SlamSystem:
         # The deferred solves go last, so that they solve on the
         # loop-corrected map.
         if self.async_mapping and kf_recs:
-            self._dispatch_ba(kf_recs)
+            with self.sync.span("flush.local_ba"):
+                self._dispatch_ba(kf_recs)
 
     # ------------------------------------------------------------------
     def _dispatch_ba(self, kf_recs) -> None:
@@ -581,27 +614,31 @@ class SlamSystem:
         reused slots) is left to ``merge_local_ba``'s guards."""
         if self._pending_ba is None:
             return
-        pend, self._pending_ba = self._pending_ba, None
-        if self.n_loops_closed != pend.loops0 or self.n_global_ba != pend.gba0:
-            for _, _, rec in pend.solves:
-                rec["ba_dropped"] = True
-            return
-        side_stream = self._mapping_stream is not None and same_device(
-            self.mapping_device, self.device)
-        if pend.done is not None:
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).wait_event(pend.done)
-            # The stats' host copies have landed once the solves are done.
-            pend.done.synchronize()
-        for res, st, rec in pend.solves:
-            res = _to_device(res, self.device)
-            if side_stream:
-                # Allocated on the mapping stream, read on this one.
-                _record_stream(res, torch.cuda.current_stream(self.device))
-            self.map, self.track = _merge_ba_and_reanchor(
-                self.cfg, self.map, self.track, res)
-            cost0, cost1, n_edges = st.tolist()
-            rec.update(ba_cost0=cost0, ba_cost1=cost1, ba_edges=int(n_edges))
+        with self.sync.span("flush.local_ba"):
+            pend, self._pending_ba = self._pending_ba, None
+            if (self.n_loops_closed != pend.loops0
+                    or self.n_global_ba != pend.gba0):
+                for _, _, rec in pend.solves:
+                    rec["ba_dropped"] = True
+                return
+            side_stream = self._mapping_stream is not None and same_device(
+                self.mapping_device, self.device)
+            if pend.done is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).wait_event(
+                        pend.done)
+                # The stats' host copies have landed once the solves are done.
+                pend.done.synchronize()
+            for res, st, rec in pend.solves:
+                res = _to_device(res, self.device)
+                if side_stream:
+                    # Allocated on the mapping stream, read on this one.
+                    _record_stream(res, torch.cuda.current_stream(self.device))
+                self.map, self.track = _merge_ba_and_reanchor(
+                    self.cfg, self.map, self.track, res)
+                cost0, cost1, n_edges = st.tolist()
+                rec.update(ba_cost0=cost0, ba_cost1=cost1,
+                           ba_edges=int(n_edges))
 
     # ------------------------------------------------------------------
     def _dispatch_verify(self, loop_requests) -> None:
@@ -615,48 +652,52 @@ class SlamSystem:
         reqs = reqs[: self.MAX_VERIFY]
         if not reqs:
             return
-        # Pad to the fixed batch size by repeating the first request (the
-        # reference's static batch; the host reads only the first n).
-        pad = reqs + [reqs[0]] * (self.MAX_VERIFY - len(reqs))
-        kf_ids = torch.tensor([r[0] for r in pad], dtype=torch.int32,
-                              device=self.device)
-        cands = torch.tensor([r[1] for r in pad], dtype=torch.int32,
-                             device=self.device)
-        ok, t_rel, n_inl, midx, mok = verify_loops_batch(
-            self.cfg, self.map, kf_ids, cands, self.generator)
-        # Endpoint identity at dispatch, from the host mirror: a slot culled
-        # or reused before the resolve must drop the closure.
-        guards = [
-            (self._kf_seq_host.get(kf), self._kf_seq_host.get(cand))
-            for kf, cand, _ in reqs
-        ]
-        self._pending_verify = (ok, t_rel, n_inl, midx, mok, reqs, guards,
-                                self.n_loops_closed, self.n_global_ba)
+        with self.sync.span("flush.verify"):
+            # Pad to the fixed batch size by repeating the first request (the
+            # reference's static batch; the host reads only the first n).
+            pad = reqs + [reqs[0]] * (self.MAX_VERIFY - len(reqs))
+            kf_ids = torch.tensor([r[0] for r in pad], dtype=torch.int32,
+                                  device=self.device)
+            cands = torch.tensor([r[1] for r in pad], dtype=torch.int32,
+                                 device=self.device)
+            ok, t_rel, n_inl, midx, mok = verify_loops_batch(
+                self.cfg, self.map, kf_ids, cands, self.generator)
+            # Endpoint identity at dispatch, from the host mirror: a slot
+            # culled or reused before the resolve must drop the closure.
+            guards = [
+                (self._kf_seq_host.get(kf), self._kf_seq_host.get(cand))
+                for kf, cand, _ in reqs
+            ]
+            self._pending_verify = (ok, t_rel, n_inl, midx, mok, reqs, guards,
+                                    self.n_loops_closed, self.n_global_ba)
 
     def _resolve_pending_verify(self) -> None:
         """Read the previous drain's verification results and run at most
         one pose-graph correction."""
         if self._pending_verify is None:
             return
-        (ok, t_rel, n_inl, midx, mok, reqs, guards, loops0, gba0) = (
-            self._pending_verify
-        )
-        self._pending_verify = None
-        ok_h, inl_h = ok.cpu().numpy(), n_inl.cpu().numpy()
-        for i, (kf_id, cand, rec) in enumerate(reqs):
-            rec["loop_inliers"] = int(inl_h[i])
-        if self.n_loops_closed != loops0 or self.n_global_ba != gba0:
-            return  # trajectory moved since dispatch; stale measurement
-        for i, (kf_id, cand, rec) in enumerate(reqs):
-            fresh = (
-                guards[i][0] is not None
-                and guards[i][1] is not None
-                and self._kf_seq_host.get(kf_id) == guards[i][0]
-                and self._kf_seq_host.get(cand) == guards[i][1]
+        with self.sync.span("flush.verify"):
+            (ok, t_rel, n_inl, midx, mok, reqs, guards, loops0, gba0) = (
+                self._pending_verify
             )
-            if fresh and bool(ok_h[i]):
-                self._close_loop(kf_id, cand, t_rel[i], midx[i], mok[i], rec)
-                break
+            self._pending_verify = None
+            ok_h, inl_h = ok.cpu().numpy(), n_inl.cpu().numpy()
+            for i, (kf_id, cand, rec) in enumerate(reqs):
+                rec["loop_inliers"] = int(inl_h[i])
+            if self.n_loops_closed != loops0 or self.n_global_ba != gba0:
+                return  # trajectory moved since dispatch; stale measurement
+            for i, (kf_id, cand, rec) in enumerate(reqs):
+                fresh = (
+                    guards[i][0] is not None
+                    and guards[i][1] is not None
+                    and self._kf_seq_host.get(kf_id) == guards[i][0]
+                    and self._kf_seq_host.get(cand) == guards[i][1]
+                )
+                if fresh and bool(ok_h[i]):
+                    with self.sync.span("flush.close_loop"):
+                        self._close_loop(kf_id, cand, t_rel[i], midx[i],
+                                         mok[i], rec)
+                    break
 
     # ------------------------------------------------------------------
     def process_frame(

@@ -255,7 +255,8 @@ def _pcg(matvec, b, Minv_blocks, iters: int, rtol: float = 1e-2,
     tol = (rtol * rtol) * torch.sum(r * r)
     k = 0
     while k < iters and sync.flag(torch.sum(r * r) > tol):
-        Ap = matvec(p)
+        with sync.span("gba.cg_apply"):
+            Ap = matvec(p)
         rz = torch.sum(r * z)
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-12)
         x = x + alpha * p
@@ -272,7 +273,16 @@ def global_bundle_adjustment(cfg: SlamConfig, state: MapState,
                              lm_iters: int = 6, cg_iters: int = 40,
                              sync: HostSync | None = None):
     """Full-map BA; returns (MapState, GlobalBaStats).  KF0 fixed (gauge).
-    ``sync`` counts the CG loop's host reads."""
+    ``sync`` counts the CG loop's host reads and, when it records, spans the
+    solve (``gba.solve``), each LM iteration's assembly (``gba.assemble``)
+    and CG solve (``gba.cg``) and each CG application (``gba.cg_apply``)."""
+    sync = HostSync() if sync is None else sync
+    with sync.span("gba.solve"):
+        return _solve(cfg, state, lm_iters, cg_iters, sync)
+
+
+def _solve(cfg: SlamConfig, state: MapState, lm_iters: int, cg_iters: int,
+           sync: HostSync):
     delta = cfg.local_ba.huber_delta
     C = state.kf_pose.shape[0]
     P = state.pt_xyz.shape[0]
@@ -290,9 +300,10 @@ def global_bundle_adjustment(cfg: SlamConfig, state: MapState,
     cost = cost0
     steps = []
     for _ in range(lm_iters):
-        r, Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, bc, Hpp_inv, bp = _assemble(
-            cfg, poses, pts, edges, sched, opt_cam_mask, lam, delta, K, N
-        )
+        with sync.span("gba.assemble"):
+            r, Jc, J_pt, w, Jc_s, Jp_s, w_s, Hcc_d, bc, Hpp_inv, bp = \
+                _assemble(cfg, poses, pts, edges, sched, opt_cam_mask, lam,
+                          delta, K, N)
         # Right-hand side of the reduced system: bc - W Hpp^-1 bp.
         zb = torch.einsum("pst,pt->ps", Hpp_inv, bp)
         b_s = (bc - _to_cameras(zb, Jp_s, Jc_s, w_s, sched, K, N)) * opt
@@ -305,7 +316,8 @@ def global_bundle_adjustment(cfg: SlamConfig, state: MapState,
                               Hpp_inv, edges, sched, K, N)
             return y * opt + x * ~opt
 
-        dxi, k = _pcg(mv, b_s, Minv, cg_iters, sync=sync)
+        with sync.span("gba.cg"):
+            dxi, k = _pcg(mv, b_s, Minv, cg_iters, sync=sync)
         dxi = dxi * opt
         steps.append(k)
         # Back-substitute landmarks.

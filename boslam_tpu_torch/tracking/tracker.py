@@ -11,6 +11,8 @@ map, and solves RANSAC PnP + robust GN for every candidate as one batch.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import NamedTuple
 
 import torch
@@ -34,20 +36,96 @@ ST_UNINIT, ST_OK, ST_LOST = 0, 1, 2
 FUSED_MATCH_MIN_POINTS = 32768
 
 
+class Span(NamedTuple):
+    """One closed span of the host's work.  ``id`` numbers the recorder's
+    spans in the order they opened; ``parent`` is the enclosing span's id
+    (-1 at a root); ``t0`` / ``t1`` are ``time.perf_counter_ns()``;
+    ``request`` is what the span belongs to: the engine's frame index, or,
+    under a root opened without one (a solve), that root's id."""
+
+    id: int
+    name: str
+    parent: int
+    t0: int
+    t1: int
+    request: int
+
+
+class _OpenSpan:
+    """The context a recording ``HostSync.span`` returns."""
+
+    __slots__ = ("sync", "name", "request")
+
+    def __init__(self, sync: "HostSync", name: str, request) -> None:
+        self.sync, self.name, self.request = sync, name, request
+
+    def __enter__(self):
+        s = self.sync
+        sid = s._next_id
+        s._next_id += 1
+        parent, request = (s._open[-1][0], s._open[-1][1]) if s._open \
+            else (-1, sid)
+        if self.request is not None:
+            request = self.request
+        s._open.append((sid, request, parent, time.perf_counter_ns()))
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        sid, request, parent, t0 = self.sync._open.pop()
+        self.sync.spans.append(Span(sid, self.name, parent, t0, t1, request))
+        return False
+
+
+# What ``span`` returns while the recorder is off: one shared context that
+# reads no clock.
+_NO_SPAN = contextlib.nullcontext()
+
+
 class HostSync:
     """Reads a device scalar on the host for a branch, and counts the
     reads: each is one wait for the device (the reference branches on the
-    device with ``lax.cond`` / ``lax.switch``)."""
+    device with ``lax.cond`` / ``lax.switch``).
 
-    def __init__(self) -> None:
+    It is also the engine's span recorder, off unless ``trace``.  On, each
+    ``span(name)`` records a ``Span`` on ``time.perf_counter_ns()`` when it
+    closes, each read is a ``sync.read`` span around its wait, and the
+    caller takes the closed spans with ``drain()``; nothing is written out.
+    Off, ``span`` returns one shared no-op context and the reads only
+    count.  ``utils.timing`` maps the spans onto the profiler's clock."""
+
+    def __init__(self, trace: bool = False) -> None:
         self.count = 0
+        self.trace = bool(trace)
+        self.spans: list = []   # closed spans, in the order they closed
+        self._open: list = []   # (id, request, parent, t0) innermost last
+        self._next_id = 0
+
+    def span(self, name: str, request: int | None = None):
+        """A context that records one span named ``name``, nested in the
+        innermost open one; ``request`` (default: the enclosing span's)
+        names the frame it belongs to."""
+        if not self.trace:
+            return _NO_SPAN
+        return _OpenSpan(self, name, request)
+
+    def drain(self) -> list:
+        """The spans closed since the last drain, in the order they closed."""
+        out, self.spans = self.spans, []
+        return out
 
     def flag(self, t: torch.Tensor) -> bool:
         self.count += 1
+        if self.trace:
+            with self.span("sync.read"):
+                return bool(t)
         return bool(t)
 
     def value(self, t: torch.Tensor) -> int:
         self.count += 1
+        if self.trace:
+            with self.span("sync.read"):
+                return int(t)
         return int(t)
 
 

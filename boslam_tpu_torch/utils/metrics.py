@@ -9,7 +9,9 @@ aggregate them.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
+import os
 from typing import Iterable, Optional
 
 
@@ -38,10 +40,13 @@ PROFILE_FRAMES = 4
 
 
 @contextlib.contextmanager
-def profile_trace(logdir: Optional[str]):
+def profile_trace(logdir: Optional[str], sync=None):
     """``torch.profiler`` trace of a run, written into ``logdir`` as a
     Chrome/TensorBoard trace (``*.pt.trace.json``) when ``logdir`` is given.
-    Yields ``step``, to be called after each frame."""
+    Yields ``step``, to be called after each frame.  With ``sync``, a
+    recording ``HostSync``, the spans it closed meanwhile are written
+    beside the trace as Chrome trace events on the trace's clock
+    (``logdir/spans.json``)."""
     if not logdir:
         yield lambda: None
         return
@@ -49,6 +54,8 @@ def profile_trace(logdir: Optional[str]):
     from torch.profiler import (
         ProfilerActivity, profile, schedule, tensorboard_trace_handler,
     )
+
+    from boslam_tpu_torch.utils import timing
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -59,7 +66,18 @@ def profile_trace(logdir: Optional[str]):
                           active=PROFILE_FRAMES, repeat=1),
         on_trace_ready=tensorboard_trace_handler(logdir),
     ) as prof:
+        before = timing.clock_pair()
         yield prof.step
+        after = timing.clock_pair()
+    if sync is not None:
+        traces = sorted(glob.glob(os.path.join(logdir, "*.pt.trace.json")),
+                        key=os.path.getmtime)
+        base = timing.trace_base_ns(traces[-1]) if traces else 0
+        events = timing.chrome_events(sync.drain(),
+                                      timing.clock_map(before, after), base)
+        with open(os.path.join(logdir, "spans.json"), "w") as f:
+            json.dump({"displayTimeUnit": "ms", "baseTimeNanoseconds": base,
+                       "traceEvents": events}, f)
 
 
 def summarize(metrics: list) -> dict:

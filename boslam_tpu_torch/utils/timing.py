@@ -1,31 +1,39 @@
 """Per-stage and per-frame timing of the engine on the CUDA card.
 
-The counterpart of ``boslam_tpu.utils.timing``.  It times the three stages
-of the frame step (feature extraction, frame-to-map tracking, local bundle
-adjustment) on copies of a live engine's state, and the whole frame step
-under ``torch.profiler``, and grounds both in the card's peak rates:
+The counterpart of ``boslam_tpu.utils.timing``.  It times the whole frame
+step under ``torch.profiler``, grounds it in the card's peak rates, and
+lays the engine's spans (``tracking.tracker.HostSync``) over the
+profiler's device trace:
 
-* ``stage_timings``: each stage's ms by CUDA events, its kernel time under
-  the profiler, and its share of the card's peak FLOP/s and bytes/s;
 * ``frame_device_ms``: device busy ms per frame over a window of frames
   fed to an engine, the idle share, device operations and host syncs per
   frame;
 * ``step_utilization``: the frame's FLOPs and bytes (``stage_cost``) over
-  the device busy ms.
+  the device busy ms;
+* ``clock_pair`` / ``clock_map``: the spans' clock
+  (``time.perf_counter_ns``) mapped onto the profiler's (Unix ns);
+* ``attribute``: each device operation to the innermost span open when
+  the host launched it, and each stretch of the device's idle time to the
+  innermost span open on the host meanwhile; ``clock_slack`` checks the
+  mapping against the runtime calls of the host's reads;
+  ``profile_spans`` runs a callable under the profiler and does both;
+* ``chrome_events``: the spans as Chrome trace events beside the
+  profiler's trace (``main.py --profile``).
 
 The operation and byte counts are analytic (``stage_cost``): what the
 algorithm needs on the config's shapes, each input byte read once and each
 output byte written once, so a share never reads above 1.  Every function
-that measures raises when it finds no card; none falls back to the CPU.
-The stage runners (``stage_runners``) are split from the clocks so that the
-CPU can run them.
+that measures on the card raises when it finds none; none falls back to
+the CPU.  The span functions take plain records, so the CPU runs them.
 """
 
 from __future__ import annotations
 
+import bisect
+import re
 import subprocess
 import time
-from typing import Callable, Dict, NamedTuple, Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -39,8 +47,6 @@ _PEAKS = (
     ("h100 80gb hbm3", 67e12, 3.35e12),
     ("h100 sxm", 67e12, 3.35e12),
 )
-
-STAGES = ("feature", "track", "local_ba")
 
 # Operation counts of stage_cost, per unit of work (see its docstring).
 RESIZE_OPS = 12          # per output pixel: 3 taps x (mul, add), two passes
@@ -156,44 +162,6 @@ def stage_cost(cfg, stage: str) -> tuple:
     return float(ops), float(nbytes)
 
 
-class Stage(NamedTuple):
-    """One stage on a live engine: ``prepare()`` copies the state the stage
-    may write, ``run(*prepare())`` runs it."""
-
-    prepare: Callable[[], tuple]
-    run: Callable[..., object]
-
-
-def _clone(nt):
-    return type(nt)(*(t.clone() for t in nt))
-
-
-def stage_runners(slam, gray, depth) -> Dict[str, Stage]:
-    """The three stages on ``slam``'s live state, each on its own copy of
-    the map and track state, so that the engine is left as it was.
-
-    ``gray``: [H, W] f32 frame; ``depth``: f32 metres at the wire shape.
-    ``track`` tracks this frame's features; ``local_ba`` solves the window
-    around the latest keyframe."""
-    from boslam_tpu_torch.features.frontend import extract_features
-    from boslam_tpu_torch.mapping.map_state import latest_kf_slot
-    from boslam_tpu_torch.solvers.local_ba import local_bundle_adjustment
-    from boslam_tpu_torch.tracking.tracker import HostSync, track_frame
-
-    cfg, dev = slam.cfg, slam.device
-    g = torch.as_tensor(np.asarray(gray, np.float32), device=dev)
-    d = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
-    feats = extract_features(g, d, cfg)
-    center = latest_kf_slot(slam.map)
-    return {
-        "feature": Stage(lambda: (), lambda: extract_features(g, d, cfg)),
-        "track": Stage(lambda: (_clone(slam.map), _clone(slam.track)),
-                       lambda m, t: track_frame(cfg, m, t, feats, HostSync())),
-        "local_ba": Stage(lambda: (_clone(slam.map),),
-                          lambda m: local_bundle_adjustment(cfg, m, center)),
-    }
-
-
 def _device_events(prof):
     """(device µs, device operations, {name: [launches, µs]}) of a
     profile: kernels, copies and fills.  Read from the trace's raw events:
@@ -220,49 +188,6 @@ def _profile():
     from torch.profiler import ProfilerActivity, profile
 
     return profile(activities=[ProfilerActivity.CUDA])
-
-
-def stage_timings(slam, gray, depth, repeats: int = 7) -> Dict[str, float]:
-    """Per stage, on copies of ``slam``'s live state, after two warm-ups:
-    ``{stage}_ms``, the median over ``repeats`` calls of CUDA events
-    recorded around the call; ``{stage}_device_ms``, its kernel time per
-    call under ``torch.profiler``; and on a card of the peak table
-    ``{stage}_util_flops`` / ``{stage}_util_hbm`` (``stage_cost`` over
-    ``{stage}_ms`` and the peaks) and ``{stage}_bound_by``, which of the
-    two bounds the least time."""
-    _require_card(slam.device)
-    peaks = device_peaks()
-    out: Dict[str, float] = {}
-    for name, stage in stage_runners(slam, gray, depth).items():
-        for _ in range(2):
-            stage.run(*stage.prepare())
-        times = []
-        for _ in range(repeats):
-            args = stage.prepare()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            stage.run(*args)
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        ms = float(np.median(times))
-        argsets = [stage.prepare() for _ in range(repeats)]
-        torch.cuda.synchronize()
-        with _profile() as prof:
-            for args in argsets:
-                stage.run(*args)
-            torch.cuda.synchronize()
-        busy_us, _, _ = _device_events(prof)
-        out[f"{name}_ms"] = ms
-        out[f"{name}_device_ms"] = busy_us / 1e3 / repeats
-        if peaks is not None:
-            flops, nbytes = stage_cost(slam.cfg, name)
-            out[f"{name}_util_flops"] = flops / (ms * 1e-3) / peaks[0]
-            out[f"{name}_util_hbm"] = nbytes / (ms * 1e-3) / peaks[1]
-            out[f"{name}_bound_by"] = ("operations" if flops / peaks[0]
-                                       >= nbytes / peaks[1] else "bytes")
-    return out
 
 
 def frame_device_ms(slam, frames: Sequence) -> dict:
@@ -318,3 +243,209 @@ def step_utilization(cfg, device_step_ms: float, kf_events_per_frame: float,
         "step_util_flops": flops / sec / peaks[0],
         "step_bytes_gbps": nbytes / sec / 1e9,
     }
+
+
+# --- spans on the profiler's clock ------------------------------------------
+
+NO_SPAN = "no span"
+NO_LAUNCH = "no launch record"
+
+
+def clock_pair() -> tuple:
+    """(``time.perf_counter_ns()``, ``time.time_ns()``) read back to back.
+    The profiler stamps its events in Unix nanoseconds."""
+    return time.perf_counter_ns(), time.time_ns()
+
+
+def clock_map(before: tuple, after: tuple):
+    """The spans' clock onto the profiler's: a function of a
+    ``perf_counter_ns`` reading, linear through two ``clock_pair()``s read
+    around the profiled window (the two clocks drift apart by a few parts
+    per million)."""
+    (p0, u0), (p1, u1) = before, after
+    rate = (u1 - u0) / (p1 - p0) if p1 > p0 else 1.0
+    return lambda t: u0 + round((t - p0) * rate)
+
+
+def profiler_records(prof):
+    """(device operations, runtime calls) of a profile's raw events, each
+    [(start ns, end ns, name, correlation id)] sorted by start.  A device
+    operation and the runtime call that launched it share a correlation
+    id; with ``ProfilerActivity.CUDA`` alone the host's events are those
+    runtime calls."""
+    dev, host = [], []
+    for e in prof.profiler.kineto_results.events():
+        t0 = e.start_ns()
+        rec = (t0, t0 + e.duration_ns(), e.name(), e.correlation_id())
+        (dev if e.device_type() == torch.autograd.DeviceType.CUDA
+         else host).append(rec)
+    dev.sort()
+    host.sort()
+    return dev, host
+
+
+def launch_times(calls) -> Dict[int, int]:
+    """{correlation id: start ns} of the runtime calls that launched
+    device work (a lazy module load shares its launch's id and starts
+    inside it: the earliest call is the launch)."""
+    out: Dict[int, int] = {}
+    for t0, _, _, corr in calls:
+        out.setdefault(corr, t0)
+    return out
+
+
+def _innermost(intervals):
+    """Properly nested [(t0, t1, name)] -> the disjoint stretches
+    [(start, end, name)], in order, over which ``name`` is the innermost
+    interval open; stretches with none open are left out."""
+    out, stack, cur = [], [], None
+    for t0, t1, name in sorted(intervals, key=lambda iv: (iv[0], -iv[1])):
+        while stack and stack[-1][0] <= t0:
+            end, top = stack.pop()
+            out.append((cur, end, top))
+            cur = end
+        if stack:
+            out.append((cur, t0, stack[-1][1]))
+        stack.append((t1, name))
+        cur = t0
+    while stack:
+        end, top = stack.pop()
+        out.append((cur, end, top))
+        cur = end
+    return [s for s in out if s[1] > s[0]]
+
+
+def attribute(spans, to_clock, device_ops, calls, window=None) -> dict:
+    """The device's work and idle time by span.
+
+    ``spans``: ``HostSync`` spans; ``to_clock`` maps their times onto the
+    profiler's (``clock_map``); ``device_ops`` and ``calls`` as
+    ``profiler_records`` returns them.  Each device operation goes to the
+    innermost span open when its runtime call started, wherever it ran
+    (``NO_SPAN`` if none was open; ``NO_LAUNCH`` if its call is missing).
+    The device is idle outside the union of its operations within
+    ``window`` ((start, end) on the profiler's clock; by default from the
+    first operation's start to the last one's end), and each idle stretch
+    is split by time among the innermost spans open on the host
+    meanwhile.  Returns ``ops_by_span`` {name: [operations, device s]},
+    ``idle_by_span`` {name: idle s}, ``busy_s`` and ``window_s``."""
+    segs = _innermost([(to_clock(s.t0), to_clock(s.t1), s.name)
+                       for s in spans])
+    starts = [s[0] for s in segs]
+
+    def at(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return segs[i][2] if i >= 0 and t < segs[i][1] else NO_SPAN
+
+    launched = launch_times(calls)
+    ops: Dict[str, list] = {}
+    for t0, t1, _, corr in device_ops:
+        t = launched.get(corr)
+        rec = ops.setdefault(NO_LAUNCH if t is None else at(t), [0, 0.0])
+        rec[0] += 1
+        rec[1] += (t1 - t0) / 1e9
+    if window is None:
+        window = (device_ops[0][0], max(op[1] for op in device_ops)) \
+            if device_ops else (0, 0)
+    lo, hi = window
+    idle_iv, cur, busy = [], lo, 0
+    for t0, t1, _, _ in device_ops:
+        t0, t1 = max(t0, lo), min(t1, hi)
+        if t1 <= cur:
+            continue
+        if t0 > cur:
+            idle_iv.append((cur, t0))
+        busy += t1 - max(t0, cur)
+        cur = t1
+    if cur < hi:
+        idle_iv.append((cur, hi))
+    idle: Dict[str, float] = {}
+    for a, b in idle_iv:
+        i = bisect.bisect_right(starts, a) - 1
+        if i < 0 or segs[i][1] <= a:
+            i += 1  # the first stretch that ends after ``a``
+        t = a
+        while t < b:
+            if i < len(segs) and segs[i][0] <= t:
+                end, name = min(segs[i][1], b), segs[i][2]
+                i += 1
+            else:
+                end = min(segs[i][0], b) if i < len(segs) else b
+                name = NO_SPAN
+            idle[name] = idle.get(name, 0.0) + (end - t) / 1e9
+            t = end
+    return {"ops_by_span": ops, "idle_by_span": idle, "busy_s": busy / 1e9,
+            "window_s": (hi - lo) / 1e9}
+
+
+def clock_slack(spans, to_clock, calls) -> dict:
+    """How far ``to_clock`` may be off, read from the host's reads: each
+    ``sync.read`` span holds the runtime calls of its read (the copy and
+    the wait), so a mapping off by less than ``before_ns`` early or
+    ``after_ns`` late keeps every read's calls inside its span: the least
+    time from a read span's start to its first call and from its last
+    call's end to the span's end.  ``reads`` counts the read spans,
+    ``empty`` those in which no call starts."""
+    starts = [c[0] for c in calls]
+    before = after = None
+    reads = empty = 0
+    for s in spans:
+        if s.name != "sync.read":
+            continue
+        reads += 1
+        a, b = to_clock(s.t0), to_clock(s.t1)
+        inside = calls[bisect.bisect_left(starts, a):
+                       bisect.bisect_right(starts, b)]
+        if not inside:
+            empty += 1
+            continue
+        lo = inside[0][0] - a
+        hi = b - max(c[1] for c in inside)
+        before = lo if before is None else min(before, lo)
+        after = hi if after is None else min(after, hi)
+    return {"reads": reads, "empty": empty, "before_ns": before,
+            "after_ns": after}
+
+
+def profile_spans(run, sync) -> dict:
+    """``run()`` under ``torch.profiler`` (card activity only), the spans
+    it closed taken from ``sync`` and mapped onto the profiler's clock by
+    a ``clock_pair()`` on either side: ``attribute``'s result over the
+    run, with ``slack`` (``clock_slack``), the clocks' ``offset_ns`` at
+    the start, ``spans``, ``device_ops``, ``calls`` and ``to_clock``
+    beside it."""
+    _require_card()
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        before = clock_pair()
+        run()
+        torch.cuda.synchronize()
+        after = clock_pair()
+    to_clock = clock_map(before, after)
+    dev, calls = profiler_records(prof)
+    spans = sync.drain()
+    got = attribute(spans, to_clock, dev, calls,
+                    window=(to_clock(before[0]), to_clock(after[0])))
+    got.update(slack=clock_slack(spans, to_clock, calls),
+               offset_ns=before[1] - before[0], spans=spans, device_ops=dev,
+               calls=calls, to_clock=to_clock)
+    return got
+
+
+def trace_base_ns(path: str) -> int:
+    """The ``baseTimeNanoseconds`` of a profiler trace (its header's time
+    origin: the trace's ``ts`` count microseconds from it), else 0."""
+    with open(path, "rb") as f:
+        head = f.read(1 << 16).decode("utf-8", "replace")
+    m = re.search(r'"baseTimeNanoseconds"\s*:\s*(\d+)', head)
+    return int(m.group(1)) if m else 0
+
+
+def chrome_events(spans, to_clock, base_ns: int = 0) -> list:
+    """The spans as Chrome trace complete events ("X") on the profiler's
+    clock, in microseconds from ``base_ns`` (``trace_base_ns`` of the
+    profiler's trace), on a host row of their own, each with its request."""
+    return [{"ph": "X", "name": s.name, "pid": "host spans", "tid": 0,
+             "ts": (to_clock(s.t0) - base_ns) / 1e3,
+             "dur": (s.t1 - s.t0) / 1e3, "args": {"request": s.request}}
+            for s in sorted(spans, key=lambda s: (s.t0, -s.t1))]

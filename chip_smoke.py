@@ -80,8 +80,10 @@ Phases, each fatal on failure:
      launch per frame of each frontend kernel), one ``batch=16`` pass (every
      pose within 1e-6 m of the stream pass's), a pass with loops off (the
      ATE within the bound of the reference's loop-off ATE), the device pass
-     (``utils.timing.frame_device_ms`` over 20 frames) and the stage
-     timings, every printed share at most 1; then ``bench_global_ba`` at 50k
+     (``utils.timing.frame_device_ms`` over 20 frames), every printed
+     share at most 1, and the stage pass (``bench_stages``: at least 95 %
+     of its device operations launched inside a span of the engine's own);
+     then ``bench_global_ba`` at 50k
      landmarks, edges and landmarks exactly phase 7a's.  Prints the bench's
      primary line.
 
@@ -1506,7 +1508,9 @@ def check_bench(loop_built, fc, card):
     extras.update(bench.bench_device_path(
         cfg, frames, warm=BENCH_DEVICE_WARM, kf_events_per_frame=kf_rate,
         device="cuda", n_frames=BENCH_DEVICE_FRAMES))
-    extras.update(bench.bench_stages(engines["stream"], frames))
+    extras.update(bench.bench_stages(
+        cfg, frames, warm=BENCH_DEVICE_WARM, device="cuda",
+        n_frames=BENCH_DEVICE_FRAMES))
     gba = bench.bench_global_ba(GBA_PROBLEM["n_pts"], device="cuda")
     print(f"[bench] {json.dumps(bench._line(dict(extras, card=card)))}",
           flush=True)
@@ -1533,10 +1537,17 @@ def check_bench(loop_built, fc, card):
                  f"per frame, {launches[k]} in the stream and batch passes")
     shares = {k: v for k, v in extras.items()
               if "_util_" in k or k == "device_idle_share"}
-    if "step_util_flops" not in shares or len(shares) < 8:
+    if "step_util_flops" not in shares or len(shares) < 2:
         fail(f"bench: shares missing, got {sorted(shares)}")
     if not all(0.0 <= v <= 1.0 for v in shares.values()):
         fail(f"bench: a share outside [0, 1]: {shares}")
+    from boslam_tpu_torch.utils.timing import NO_LAUNCH, NO_SPAN
+
+    ops = extras["stages_device_ops"]
+    outside = ops.get(NO_SPAN, 0.0) + ops.get(NO_LAUNCH, 0.0)
+    if not outside <= 0.05 * sum(ops.values()):
+        fail(f"bench: {outside} of {sum(ops.values())} device operations a "
+             f"frame launched outside every span")
     for k, ref in (("ba_edges", JAX_GBA["n_edges"]),
                    ("ba_landmarks", JAX_GBA["n_landmarks"])):
         if gba[k] != ref:

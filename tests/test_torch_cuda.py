@@ -348,3 +348,71 @@ def test_one_rank_distributed_global_ba_on_the_card(cuda_device):
     assert float(dt[slam.map.kf_valid].max()) < 2e-3
     perr = (st_a.pt_xyz - st_b.pt_xyz).norm(dim=-1)[slam.map.pt_valid]
     assert float(perr.max()) < 5e-3
+
+
+@pytest.mark.cuda
+def test_spans_attribute_the_card_work(cuda_device):
+    """The engine's spans over the device trace on the card.  ``hall``'s
+    configuration (``bench._tracking_cfg``) on the bench's clover, 8 frames
+    traced after 24: every launch of the two frontend kernels goes to
+    ``frame.frontend``, at least 95 % of the device operations to some span,
+    and the clock's mapping keeps the runtime calls of every host read
+    inside its ``sync.read`` span.  One traced global-BA solve at a small
+    size (16 keyframes, 2,000 points, 128 observations each): every CG
+    application launches the same number of device operations."""
+    import bisect
+
+    from boslam_tpu_torch import bench
+    from boslam_tpu_torch.slam import SlamSystem
+    from boslam_tpu_torch.solvers.global_ba import global_bundle_adjustment
+    from boslam_tpu_torch.tracking.tracker import HostSync
+    from boslam_tpu_torch.utils import timing
+
+    cfg = bench._tracking_cfg(2)
+    traj = synthetic.clover_trajectory(450, n_petals=3, radius=2.5,
+                                       yaw_amplitude=0.4)
+    frames = list(bench._render(cfg.camera, type(traj)(
+        traj.poses_twc[:32], traj.timestamps[:32]), 0.025, 3, 2.5))
+    slam = SlamSystem(cfg, chunk=1, trace=True)
+    for f in frames[:24]:
+        slam.feed(*f)
+    slam.sync.drain()
+
+    def run():
+        for f in frames[24:]:
+            slam.feed(*f)
+
+    got = timing.profile_spans(run, slam.sync)
+    to_clock, launched = got["to_clock"], timing.launch_times(got["calls"])
+    front = [(to_clock(s.t0), to_clock(s.t1)) for s in got["spans"]
+             if s.name == "frame.frontend"]
+    kernels = [op for op in got["device_ops"] if "fast_rank_kernel" in op[2]
+               or "describe_patches_kernel" in op[2]]
+    assert len(front) == 8 and len(kernels) == 16
+    for op in kernels:
+        assert any(a <= launched[op[3]] <= b for a, b in front), op[2]
+    ops = got["ops_by_span"]
+    outside = sum(ops.get(k, [0])[0] for k in (timing.NO_SPAN,
+                                               timing.NO_LAUNCH))
+    assert outside <= 0.05 * sum(v[0] for v in ops.values())
+    slack = got["slack"]
+    assert slack["reads"] >= 8 and slack["empty"] == 0
+    assert slack["before_ns"] >= 0 and slack["after_ns"] >= 0
+
+    gcfg = SlamConfig.from_dict(dict(map=dict(max_keyframes=16,
+                                              max_points=4096),
+                                     orb=dict(n_features=128)))
+    st, _, _ = synthetic.synthetic_ba_problem(
+        gcfg, np.random.default_rng(0), n_kf=16, n_pts=2000, obs_per_kf=128)
+    st = type(st)(*(t.to(cuda_device) for t in st))
+    global_bundle_adjustment(gcfg, st, lm_iters=2, cg_iters=10)
+    sync = HostSync(trace=True)
+    got = timing.profile_spans(
+        lambda: global_bundle_adjustment(gcfg, st, lm_iters=6, cg_iters=40,
+                                         sync=sync), sync)
+    to_clock, launched = got["to_clock"], timing.launch_times(got["calls"])
+    starts = sorted(launched[op[3]] for op in got["device_ops"])
+    per_apply = [bisect.bisect_right(starts, to_clock(s.t1))
+                 - bisect.bisect_left(starts, to_clock(s.t0))
+                 for s in got["spans"] if s.name == "gba.cg_apply"]
+    assert len(per_apply) > 6 and len(set(per_apply)) == 1 and per_apply[0]

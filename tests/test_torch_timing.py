@@ -4,9 +4,9 @@
   hand on a tiny config; ``step_utilization``'s weighting;
 * every function that measures raises without a card, and so does the
   bench without ``--device cpu``;
-* the stage runners leave the engine's state as it was;
 * a ``--device cpu`` run of the bench's ``main()`` at the smallest size its
-  flags allow prints JSON lines with no device metric.
+  flags allow prints JSON lines with no device metric, and its stage phase
+  reads the engine's spans.
 """
 
 import json
@@ -80,15 +80,13 @@ def engine():
     for f in frames[:7]:
         slam.feed(*f)
     slam.flush()
-    _, _, gray, depth = tp.wire(cfg_t, frames[7][1], frames[7][2])
-    return slam, frames, gray, depth
+    return slam, frames
 
 
 def test_timing_raises_without_card(engine, monkeypatch):
-    slam, frames, gray, depth = engine
+    slam, frames = engine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: timing.stage_timings(slam, gray, depth),
-                 lambda: timing.frame_device_ms(slam, frames[7:]),
+    for call in (lambda: timing.frame_device_ms(slam, frames[7:]),
                  timing.device_peaks, timing.card,
                  lambda: bench.main(["--frames", "2"])):
         with pytest.raises(RuntimeError):
@@ -96,29 +94,12 @@ def test_timing_raises_without_card(engine, monkeypatch):
     assert slam.metrics and len(slam.metrics) == 7
 
 
-def test_stage_runners_leave_state_unchanged(engine):
-    slam, _, gray, depth = engine
-    before = [(k, t.clone()) for nt in (slam.map, slam.track)
-              for k, t in nt._asdict().items()]
-    runners = timing.stage_runners(slam, gray, depth)
-    assert tuple(runners) == timing.STAGES
-    outs = {name: st.run(*st.prepare()) for name, st in runners.items()}
-    after = {k: t for nt in (slam.map, slam.track)
-             for k, t in nt._asdict().items()}
-    for k, t in before:
-        assert torch.equal(after[k], t), k
-    # The stages ran on this state: features of the frame, a tracked pose,
-    # a local BA with edges.
-    assert int(outs["feature"].valid.sum()) > 0
-    assert int(outs["track"][1].n_inliers) > 0
-    assert int(outs["local_ba"][1].n_edges) > 0
-
-
 def _device_keys(line):
     return sorted(k for k in line
                   if k.startswith(("device_", "step_", "card", "power_"))
                   or "_util_" in k or k.endswith("_launches_per_frame")
-                  or k == "vs_baseline_device" or k == "warmup_build_s")
+                  or "_device" in k or k == "stages_idle_ms"
+                  or k == "warmup_build_s")
 
 
 def test_main_on_cpu_writes_no_device_metric(capsys):
@@ -134,4 +115,10 @@ def test_main_on_cpu_writes_no_device_metric(capsys):
     assert all(final[k] == v for k, v in primary.items())
     assert {"ate_loop_off_m", "ate_noise0_m", "loops_noise0", "phase_times",
             "phases_skipped", "elapsed_s"} <= final.keys()
-    assert {"device_path", "stages"} <= set(final["phases_skipped"])
+    assert "device_path" in final["phases_skipped"]
+    assert "stages" not in final["phases_skipped"]
+    stages = final["stages_host_ms"]
+    assert {"frame", "frame.upload", "frame.frontend", "frame.track",
+            "sync.read", "flush", "flush.readback"} <= stages.keys()
+    assert all(v > 0 for v in stages.values())
+    assert final["stages_per_frame"]["frame.frontend"] == 1.0

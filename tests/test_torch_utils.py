@@ -247,7 +247,20 @@ def test_cli_checkpoint_resume_metrics_profile_viz(tmp_path):
     lines = [json.loads(x) for x in open(tmp_path / "m.jsonl")]
     assert len(lines) == 6 and lines[0]["event"] == "init"
     assert glob.glob(str(tb / "events.out.tfevents.*"))
-    assert glob.glob(str(prof / "*.pt.trace.json"))
+    (trace_file,) = glob.glob(str(prof / "*.pt.trace.json"))
+    # The engine's spans beside the trace, on its clock: each host
+    # operation the profiler recorded ran inside a span of the engine's.
+    trace = json.load(open(trace_file))
+    spans = json.load(open(prof / "spans.json"))
+    assert spans["baseTimeNanoseconds"] == trace["baseTimeNanoseconds"]
+    assert {e["args"]["request"] for e in spans["traceEvents"]
+            if e["name"] == "frame"} == set(range(6))
+    around = [(e["ts"], e["ts"] + e["dur"]) for e in spans["traceEvents"]
+              if e["name"] in ("frame", "flush")]
+    ops = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"]
+    inside = [any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                  for a, b in around) for e in ops]
+    assert ops and sum(inside) >= 0.9 * len(ops)
     assert os.path.getsize(tmp_path / "map.png") > 10000
     assert (ck / ckpt.STATE_FILE).exists()
 
