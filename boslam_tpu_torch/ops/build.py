@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel name -> (source file, C entry point, ctypes argtypes).  The two
 # frontend entries take a pointer to a host-side level table first
-# (``ops.frontend_cuda``), which the entry copies into the launch.
+# (``ops.frontend_cuda``), and ``pose_gn`` one to its arguments
+# (``ops.pose_cuda``), which the entry copies into the launch.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "fast_rank": ("fast_rank.cu", "boslam_fast_rank",
@@ -37,12 +38,14 @@ KERNELS = {
     "fused_match": ("fused_match.cu", "boslam_fused_match",
                     [_P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _F, _I, _P, _P,
                      _P, _P, _P, _P, _P]),
+    "pose_gn": ("pose_gn.cu", "boslam_pose_gn", [_P, _P]),
 }
 
 _SOURCES = dict(KERNELS, launch_floor=("launch_floor.cu", "boslam_launch_floor",
                                        [_P]))
 
 LAUNCHES = {name: 0 for name in KERNELS}
+BUILD_LOGS: dict = {}  # name -> the compiler's report of a verbose build
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 
@@ -72,7 +75,8 @@ def build_kernels(names=None, verbose: bool = False) -> dict:
     """Compile the named sources (default: every kernel and the empty
     ``launch_floor``) that are not built yet, one ``nvcc`` per source, all
     started together.  Returns {name: .so path}.  ``verbose`` adds
-    ``-Xptxas -v`` and prints the compiler's report."""
+    ``-Xptxas -v``, prints the compiler's report and keeps it in
+    ``BUILD_LOGS``."""
     names = list(_SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -90,6 +94,7 @@ def build_kernels(names=None, verbose: bool = False) -> dict:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if verbose and log:
+            BUILD_LOGS[name] = log
             print(f"[nvcc {name}]\n{log}", flush=True)
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")

@@ -1,9 +1,13 @@
 """Motion-only bundle adjustment: robust Gauss-Newton on one SE3 pose.
 
 Residual per observation (RGBD): [u_pred - u_obs, v_pred - v_obs,
-w_d * (z_pred - z_obs)].  All edges are evaluated batched; the 6x6 normal
-system is two einsums and the damped solve a 6x6 Cholesky.  The reference's
-``lax.scan`` loops are Python loops here.
+w_d * (z_pred - z_obs)].  ``optimize_pose`` runs the whole optimizer as one
+launch of the ``pose_gn`` kernel for CUDA tensors (``ops.pose_cuda``, the
+counterpart of the reference's ``lax.scan`` loops compiled into one
+program) and ``optimize_pose_plain`` for CPU tensors.  In the plain version
+all edges are evaluated batched, the 6x6 normal system is two einsums, the
+damped solve a 6x6 Cholesky, and the reference's ``lax.scan`` loops are
+Python loops.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 from boslam_tpu_torch.config import SlamConfig
 from boslam_tpu_torch.geometry import camera as cam_mod
 from boslam_tpu_torch.geometry import se3
+from boslam_tpu_torch.ops import pose_cuda
 from boslam_tpu_torch.solvers import robust
 
 
@@ -50,6 +55,29 @@ def pose_residuals(cfg: SlamConfig, pose_cw, pts_w, uv_obs, depth_obs, has_depth
 
 
 def optimize_pose(
+    cfg: SlamConfig,
+    pose0,
+    pts_w,
+    uv_obs,
+    depth_obs,
+    has_depth,
+    obs_mask,
+    octave=None,
+    inliers0=None,
+) -> PoseOptResult:
+    """Robust GN pose refinement with chi2 outlier gating
+    (``optimize_pose_plain``'s contract): for CUDA tensors ONE launch of the
+    ``pose_gn`` kernel (``ops.pose_cuda.pose_gn``), for CPU tensors
+    ``optimize_pose_plain``."""
+    if pts_w.device.type == "cuda":
+        return PoseOptResult(*pose_cuda.pose_gn(
+            cfg, pose0, pts_w, uv_obs, depth_obs, has_depth, obs_mask,
+            octave, inliers0))
+    return optimize_pose_plain(cfg, pose0, pts_w, uv_obs, depth_obs,
+                               has_depth, obs_mask, octave, inliers0)
+
+
+def optimize_pose_plain(
     cfg: SlamConfig,
     pose0,
     pts_w,

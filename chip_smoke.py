@@ -12,6 +12,12 @@ Phases, each fatal on failure:
      library call, the per-level way of calling and the tensor code the
      fused kernel replaces, the time of an empty kernel's launch, the eager
      per-call time, and the roofline bound;
+  2b. the motion-only BA kernel (``pose_gn``) against its plain version at
+     the main path's shapes (one tracking pass at 512 and at 1024 edges,
+     relocalization's four candidates, a batch of loop verifications), with
+     ptxas's registers and spills, its device time beside its bound and the
+     plain version's, and its launches per tracked frame over a 32-frame
+     ``hall`` pass (2 a frame, 3 where tracking takes its wide fallback);
   3. end to end: ``run_sequence`` over a 120-frame full-width synthetic orbit
      on the card, every kernel launch counted (one per frame for each
      frontend kernel), ATE against groundtruth held to the JAX reference's
@@ -398,6 +404,180 @@ def check_frontend(dev, cfg):
           f"{dict(fc.LAUNCHES)}", flush=True)
     fast["floor"] = floor
     return fast, patch
+
+
+# Phase 2b: the pose_gn kernel against optimize_pose_plain, with
+# tests/test_torch_cuda.py's tolerances (float32, the sums over edges in
+# another order), at the main path's shapes: one tracking pass of hall
+# (N = 512) and of survey (N = 1024), relocalization's four candidates and
+# a batch of loop verifications.
+POSE_CASES = ("track512", "track1024", "reloc", "verify")
+POSE_Q_ATOL, POSE_T_ATOL, CHI2_EDGE_RTOL = 1e-5, 1e-4, 1e-3
+# Flops an edge a Gauss-Newton step (transform 18, projection and residual
+# 16, chi2 and the two Huber terms 18, Jacobian 20, weighted rows 18, the
+# 21 entries of H 126 and the 6 of b 36) and a cost-only pass (transform,
+# residual, chi2, one Huber term: 42).
+POSE_STEP_FLOPS, POSE_COST_FLOPS = 252, 42
+# Bytes an edge: world point 12, pixel 8, depth 4, octave 4, three masks,
+# the inlier flag written; a pose: 7 floats read and written, 2 scalars.
+POSE_EDGE_BYTES, POSE_POSE_BYTES = 32, 64
+HALL_POSE_FRAMES = 32
+
+
+def pose_gn_bound(cfg, b, n):
+    """(least ms, "bytes" or "operations") of one call over ``b`` poses of
+    ``n`` edges: every edge read once, ba_rounds x (ba_iters steps + 2 cost
+    passes) + 1 cost pass of arithmetic, at the published peaks."""
+    tk = cfg.tracker
+    flops = b * n * (tk.ba_rounds * (tk.ba_iters * POSE_STEP_FLOPS
+                                     + 2 * POSE_COST_FLOPS) + POSE_COST_FLOPS)
+    nbytes = b * (n * POSE_EDGE_BYTES + POSE_POSE_BYTES)
+    t_ops = flops / PEAK_F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_pose_gn(cfg, name, got, ref, args, kwargs):
+    """Violations of the card test's contract between the kernel's and the
+    plain version's results (empty when it holds)."""
+    import torch
+
+    from boslam_tpu_torch.solvers import pose_opt, robust
+
+    _, pts, uv, depth, hd, obs = args
+    r, _ = pose_opt.pose_residuals(cfg, ref.pose, pts, uv, depth, hd)
+    info = robust.octave_inv_sigma2(kwargs["octave"], cfg.orb.scale_factor)
+    chi2 = torch.sum(r * r, dim=-1) * info
+    bound = torch.where(hd, cfg.tracker.chi2_3d, cfg.tracker.chi2_2d)
+    near = (chi2 - bound).abs() <= CHI2_EDGE_RTOL * bound
+    differ = got.inliers != ref.inliers
+    bad = []
+    dq = float((got.pose[..., :4] - ref.pose[..., :4]).abs().max())
+    dt = float((got.pose[..., 4:] - ref.pose[..., 4:]).abs().max())
+    if not dq <= POSE_Q_ATOL:
+        bad.append(f"{name}: quaternion differs by {dq}")
+    if not dt <= POSE_T_ATOL:
+        bad.append(f"{name}: translation differs by {dt} m")
+    if bool((differ & ~near).any()):
+        bad.append(f"{name}: {int((differ & ~near).sum())} inliers differ "
+                   f"away from their chi2 bound")
+    if bool(((got.n_inliers - ref.n_inliers).abs()
+             > (near & obs).sum(-1)).any()):
+        bad.append(f"{name}: n_inliers {got.n_inliers.tolist()} against "
+                   f"{ref.n_inliers.tolist()}")
+    return bad, dict(dq=dq, dt=dt, inliers_differ=int(differ.sum()))
+
+
+def check_pose_gn(dev):
+    """Phase 2b: the ``pose_gn`` kernel against ``optimize_pose_plain`` at
+    the main path's shapes, its registers and spills, its device time
+    beside its bound and the plain version's, and its launches per tracked
+    frame over a 32-frame ``hall`` pass.  Returns its record."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import _pose_cases
+    from boslam_tpu_torch import slam as slam_mod
+    from boslam_tpu_torch.loopclosure import detect
+    from boslam_tpu_torch.ops import build
+    from boslam_tpu_torch.solvers import pose_opt
+    from boslam_tpu_torch.tracking import tracker
+
+    build.build_kernels(["pose_gn"], verbose=True)
+    usage = [ln.strip() for ln in build.BUILD_LOGS.get("pose_gn", "").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    print(f"[pose_gn] ptxas: {json.dumps(usage)}", flush=True)
+    rec = dict(cases={}, ptxas=usage)
+    for name in POSE_CASES:
+        cfg, args, kwargs = _pose_cases.problem(name, seed=11, device=dev)
+        before = build.LAUNCHES["pose_gn"]
+        got = pose_opt.optimize_pose(cfg, *args, **kwargs)
+        ref = pose_opt.optimize_pose_plain(cfg, *args, **kwargs)
+        torch.cuda.synchronize()
+        if build.LAUNCHES["pose_gn"] != before + 1:
+            fail(f"pose_gn {name}: {build.LAUNCHES['pose_gn'] - before} "
+                 f"launches for one call")
+        bad, err = hold_pose_gn(cfg, name, got, ref, args, kwargs)
+        if bad:
+            fail(f"pose_gn: {bad}")
+        b = got.pose.numel() // 7
+        n = args[1].shape[-2]
+        ms = device_ms(lambda: pose_opt.optimize_pose(cfg, *args, **kwargs))
+        if b == 1:
+            plain = device_ms(
+                lambda: pose_opt.optimize_pose_plain(cfg, *args, **kwargs),
+                iters=2)
+            plain_how = "graph"
+        else:  # batched cholesky_solve (MAGMA) allocates: no graph capture
+            plain = call_ms(
+                lambda: pose_opt.optimize_pose_plain(cfg, *args, **kwargs),
+                iters=5)
+            plain_how = "eager"
+        eager = call_ms(lambda: pose_opt.optimize_pose(cfg, *args, **kwargs))
+        plain_eager = call_ms(
+            lambda: pose_opt.optimize_pose_plain(cfg, *args, **kwargs), iters=5)
+        bound, by = pose_gn_bound(cfg, b, n)
+        rec["cases"][name] = dict(
+            b=b, n=n, ms=ms, bound_ms=bound, bound_by=by, plain_ms=plain,
+            plain_timed_by=plain_how, eager_ms=eager,
+            plain_eager_ms=plain_eager, n_inliers=got.n_inliers.tolist(),
+            **err)
+        print(f"[pose_gn] {name} B={b} N={n}: device ms {ms:.5f} (bound "
+              f"{bound:.6f}, {by}; plain {plain:.4f} by {plain_how}); eager ms "
+              f"per call {eager:.4f} (plain {plain_eager:.4f}); "
+              f"|dq| {err['dq']:.2e} |dt| {err['dt']:.2e} m, "
+              f"{err['inliers_differ']} inliers differ", flush=True)
+
+    # Launches per tracked frame over hall's first frames, by caller.
+    import sequences
+    from boslam_tpu_torch.config import SlamConfig
+    from boslam_tpu_torch.io import synthetic
+
+    cfg, _, frames = sequences.build("hall", SlamConfig, synthetic,
+                                     n_frames=HALL_POSE_FRAMES)
+    calls = collections.Counter()
+
+    def counted(key, fn):
+        def wrapped(*a, **k):
+            calls[key(*a)] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    saved = (slam_mod.track_frame, tracker.optimize_pose, detect.optimize_pose)
+    passes = []
+
+    def track_frame(*a, **k):
+        n0 = calls["track"]
+        out = saved[0](*a, **k)
+        passes.append(calls["track"] - n0)
+        return out
+
+    slam_mod.track_frame = track_frame
+    tracker.optimize_pose = counted(
+        lambda cfg, pose0, *_: "track" if pose0.dim() == 1 else "reloc",
+        saved[1])
+    detect.optimize_pose = counted(lambda *_: "verify", saved[2])
+    before = build.LAUNCHES["pose_gn"]
+    try:
+        slam_mod.run_sequence(cfg, frames, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        slam_mod.track_frame, tracker.optimize_pose, detect.optimize_pose = saved
+    launches = build.LAUNCHES["pose_gn"] - before
+    per = collections.Counter(passes)
+    rec["hall"] = dict(frames=len(frames), tracked_frames=len(passes),
+                       launches=launches, calls=dict(calls),
+                       passes_per_tracked_frame=dict(per),
+                       launches_per_tracked_frame=launches / max(len(passes), 1))
+    print(f"[pose_gn] hall, {len(frames)} frames: {json.dumps(rec['hall'])}",
+          flush=True)
+    if launches != sum(calls.values()):
+        fail(f"pose_gn: {launches} launches for {sum(calls.values())} calls")
+    if not passes or set(per) - {2, 3}:
+        fail(f"pose_gn: tracking passes per tracked frame {dict(per)}, "
+             f"expected 2 (3 on fallback frames)")
+    return rec
 
 
 def match_problem(dev, n, m, r_inf, seed=0, live=None):
@@ -1595,6 +1775,7 @@ def main() -> None:
     cfg = SlamConfig()
     orb, cam = cfg.orb, cfg.camera
     fast, patch = check_frontend(dev, cfg)
+    pose = check_pose_gn(dev)
 
     # ---- 3. end to end -----------------------------------------------------
     traj = orbit_traj = synthetic.orbit_trajectory(N_FRAMES, radius=0.6,
@@ -1761,6 +1942,22 @@ def main() -> None:
          "captured_visible_columns": match["visible_columns"],
          "batched_launches": bat["launches"]["fused_match"],
          "bench_launches": bench_launches["fused_match"]},
+        {"name": "pose_gn", "route": "cuda",
+         "source": "boslam_tpu_torch/csrc/pose_gn.cu",
+         "replaces": None, "stands_for": "boslam_tpu/solvers/pose_opt.py:115",
+         "launches": launches["pose_gn"],
+         "max_abs_err": max(max(c["dq"], c["dt"])
+                            for c in pose["cases"].values()),
+         "ms": pose["cases"]["track512"]["ms"],
+         "plain_ms": pose["cases"]["track512"]["plain_ms"],
+         "bound_ms": pose["cases"]["track512"]["bound_ms"],
+         "bound_by": pose["cases"]["track512"]["bound_by"],
+         "library_ms": None, "cases": pose["cases"], "hall": pose["hall"],
+         "ptxas": pose["ptxas"],
+         "async_launches": asy["async"]["launches"]["pose_gn"],
+         "batched_launches": bat["launches"]["pose_gn"],
+         "feed_batch_launches": fbat["launches"]["pose_gn"],
+         "bench_launches": bench_launches["pose_gn"]},
     ]
     print("[note] fast_rank: one launch over the 8 levels of one 640x480 "
           "frame (plain_ms: the plain version level by level); "
@@ -1776,7 +1973,9 @@ def main() -> None:
           "(bound_ms over the visible columns at the int8 rate; eager_ms: "
           "host ms per eager call), live_map_*: the lowest 600 slots "
           "visible, captured_*: the input of kidnap's first whole-map call, "
-          "launches from phase 5; ms, plain_ms "
+          "launches from phase 5; pose_gn: one tracking pass at 512 edges "
+          "(cases: every shape of phase 2b; replaces no Pallas kernel, "
+          "stands for the reference's lax.scan Gauss-Newton loops); ms, plain_ms "
           "and library_ms are device times from CUDA-graph replay",
           flush=True)
     print(f"[time] phases 1-10 in {time.perf_counter() - t_start:.1f} s",

@@ -15,13 +15,18 @@ order differs); ``fused_match_top2`` indices, masks and matched distances
 exact; async mapping's CUDA-graph solve and its second-stream placement
 bit-equal to the eager solve and to the same-stream run; the multi-sequence
 engine bit-equal to single engines on the card; one-rank distributed global
-BA within tests/test_parallel.py's tolerances of the single-device solver."""
+BA within tests/test_parallel.py's tolerances of the single-device solver;
+``pose_gn`` against ``optimize_pose_plain`` on the same CUDA inputs at the
+three callers' shapes, quaternion within 1e-5 and translation within 1e-4 m,
+inlier masks equal but on edges within 1e-3 (relative) of their chi2 bound
+(float32 with the sums over edges in another order; see the test)."""
 
 import numpy as np
 import pytest
 import torch
 
 import _match_cases
+import _pose_cases
 from boslam_tpu_torch.config import CameraConfig, SlamConfig
 from boslam_tpu_torch.features import frontend
 from boslam_tpu_torch.features.frontend import _BOOST_HI, _LEVEL_BORDER
@@ -29,6 +34,7 @@ from boslam_tpu_torch.io import synthetic
 from boslam_tpu_torch.ops import frontend_cuda as fc
 from boslam_tpu_torch.ops import hamming_cuda as hc
 from boslam_tpu_torch.slam import to_gray_u8
+from boslam_tpu_torch.solvers import pose_opt, robust
 
 RTOL, ATOL = 1e-5, 1e-3
 
@@ -154,13 +160,15 @@ def test_wrappers_count_launches_and_reject_mixed_devices(cuda_device):
     fc.fast_rank(gray, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
     idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
     fc.extract_patches(gray, idx, idx)
-    assert fc.LAUNCHES == {"fast_rank": 1, "extract_patches": 1, "fused_match": 0}
+    assert fc.LAUNCHES == {"fast_rank": 1, "extract_patches": 1, "fused_match": 0,
+                           "pose_gn": 0}
     fc.fast_rank_plain(gray, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
     assert fc.LAUNCHES["fast_rank"] == 1
     fc.fast_rank_levels([gray, gray[:100].contiguous()], 20.0, 7.0, _BOOST_HI,
                         _LEVEL_BORDER)
     fc.describe_patches([gray, gray], [idx, idx], [idx, idx])
-    assert fc.LAUNCHES == {"fast_rank": 2, "extract_patches": 2, "fused_match": 0}
+    assert fc.LAUNCHES == {"fast_rank": 2, "extract_patches": 2, "fused_match": 0,
+                           "pose_gn": 0}
     with pytest.raises(ValueError):
         fc.extract_patches(gray, idx.cpu(), idx.cpu())
     with pytest.raises(ValueError):
@@ -237,6 +245,87 @@ def test_fused_match_counts_launches_and_rejects_bad_inputs(cuda_device):
         hc.fused_match_top2(prob[0].long(), *prob[1:], max_dist=64)
     with pytest.raises(ValueError):
         hc.fused_match_top2(prob[0], *prob[1:4], prob[4].cpu(), *prob[5:], max_dist=64)
+
+
+# pose_gn against optimize_pose_plain on the same CUDA inputs.  Both run in
+# float32; the kernel sums over edges in another order, so the poses agree
+# to rounding where the problem is well conditioned: the quaternion within
+# 1e-5 and the translation within 1e-4 m (the plain version in float32
+# against float64 differs there by < 4e-7 on these cases).  An edge whose
+# chi2 lies within CHI2_EDGE_RTOL of its bound may fall on either side.
+POSE_Q_ATOL, POSE_T_ATOL, CHI2_EDGE_RTOL = 1e-5, 1e-4, 1e-3
+# ``few_edges``: two edges fix five of the pose's six degrees of freedom;
+# along the sixth the damped step is rounding amplified by 1 / damping (the
+# plain version in float32 against float64 differs by up to 1e-3 m there),
+# so its poses are held by the residuals they give the observed edges,
+# within FEW_EDGES_RES_ATOL (float32 against float64: up to 6.3e-4).
+FEW_EDGES_RES_ATOL = 1e-2
+
+
+def _edge_chi2(cfg, pose, args, kwargs):
+    """Each edge's chi2 at ``pose`` and its bound, as optimize_pose gates."""
+    _, pts, uv, depth, hd, _ = args
+    r, _ = pose_opt.pose_residuals(cfg, pose, pts, uv, depth, hd)
+    info = robust.octave_inv_sigma2(kwargs["octave"], cfg.orb.scale_factor)
+    bound = torch.where(hd, cfg.tracker.chi2_3d, cfg.tracker.chi2_2d)
+    return torch.sum(r * r, dim=-1) * info, bound, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_pose_cases.CASES))
+def test_pose_gn_kernel_matches_plain(cuda_device, name):
+    cfg, args, kwargs = _pose_cases.problem(name, seed=7, device=cuda_device)
+    before = fc.LAUNCHES["pose_gn"]
+    got = pose_opt.optimize_pose(cfg, *args, **kwargs)
+    assert fc.LAUNCHES["pose_gn"] == before + 1
+    ref = pose_opt.optimize_pose_plain(cfg, *args, **kwargs)
+    torch.cuda.synchronize()
+    for field in ref._fields:
+        a, b = getattr(got, field), getattr(ref, field)
+        assert a.shape == b.shape and a.dtype == b.dtype, field
+    chi2, bound, _ = _edge_chi2(cfg, ref.pose, args, kwargs)
+    near = (chi2 - bound).abs() <= CHI2_EDGE_RTOL * bound
+    differ = got.inliers != ref.inliers
+    assert not bool((differ & ~near).any())
+    assert bool(((got.n_inliers - ref.n_inliers).abs()
+                 <= (near & args[5]).sum(-1)).all())
+    assert torch.equal(got.n_inliers, got.inliers.sum(-1).to(torch.int32))
+    assert bool(torch.isfinite(got.pose).all())
+    if name == "few_edges":
+        obs = args[5]
+        r_got = _edge_chi2(cfg, got.pose, args, kwargs)[2][obs]
+        r_ref = _edge_chi2(cfg, ref.pose, args, kwargs)[2][obs]
+        torch.testing.assert_close(r_got, r_ref, rtol=0, atol=FEW_EDGES_RES_ATOL)
+        torch.testing.assert_close(got.pose[..., :4].norm(dim=-1),
+                                   torch.ones(got.pose.shape[:-1], device=cuda_device))
+    else:
+        torch.testing.assert_close(got.pose[..., :4], ref.pose[..., :4],
+                                   rtol=0, atol=POSE_Q_ATOL)
+        torch.testing.assert_close(got.pose[..., 4:], ref.pose[..., 4:],
+                                   rtol=0, atol=POSE_T_ATOL)
+    if not bool(differ.any()):
+        # The last robust cost: float32 sums of <= 1024 terms in another
+        # order, at poses equal within the tolerances above.
+        torch.testing.assert_close(got.chi2, ref.chi2, rtol=1e-4, atol=1e-3,
+                                   equal_nan=True)
+    if name == "no_mask":
+        assert int(got.n_inliers) == 0 and float(got.chi2) == 0.0
+
+
+@pytest.mark.cuda
+def test_pose_gn_refuses_mixed_devices_and_wrong_dtypes(cuda_device):
+    cfg, args, kwargs = _pose_cases.problem("reloc", seed=1, device=cuda_device)
+    before = dict(fc.LAUNCHES)
+    pose0, pts, uv, depth, hd, ok = args
+    with pytest.raises(ValueError, match="is on"):
+        pose_opt.optimize_pose(cfg, pose0, pts, uv.cpu(), depth, hd, ok, **kwargs)
+    with pytest.raises(ValueError, match="float32"):
+        pose_opt.optimize_pose(cfg, pose0, pts.double(), uv, depth, hd, ok,
+                               **kwargs)
+    with pytest.raises(ValueError, match="bool"):
+        pose_opt.optimize_pose(cfg, pose0, pts, uv, depth, hd.float(), ok,
+                               **kwargs)
+    assert fc.LAUNCHES == before
 
 
 def _async_run(cfg, frames, mapping_device):

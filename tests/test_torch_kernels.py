@@ -419,5 +419,6 @@ def test_kernel_build_is_keyed_by_source():
     sources = {name: src for name, (src, _, _) in fc.KERNELS.items()}
     assert sources == {"fast_rank": "fast_rank.cu",
                        "extract_patches": "describe_patches.cu",
-                       "fused_match": "fused_match.cu"}
+                       "fused_match": "fused_match.cu",
+                       "pose_gn": "pose_gn.cu"}
     assert set(fc.LAUNCHES) == set(fc.KERNELS)  # the empty kernel is not counted
