@@ -3,16 +3,17 @@
 A cell (``workloads/<cell>.json``) names a configuration
 (``configs/<config>.json``), a traffic mix (``traffic/<mix>.json``), the
 chips it needs, why it exists and the limits of its correctness check.
-The mix's ``kind`` names the module that runs the cell (``frames`` or
-``gba``, beside this one).  Per-layer metrics are ``metrics/<metric>.py``
-files, each with a ``read(run)`` that returns a number or None; its unit,
-layer and the end-to-end metric it moves are its entry in
-``BENCHMARK.json``.
+The mix's ``kind`` names the module that runs the cell, ``<kind>.py``
+beside this one (``runner``), which has a ``run`` callable.  Per-layer
+metrics are ``metrics/<metric>.py`` files, each with a ``read(run)`` that
+returns a number or None; its unit, layer and the end-to-end metric it
+moves are its entry in ``BENCHMARK.json``.
 Nothing here imports the port.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import math
@@ -38,6 +39,14 @@ def cell(name: str) -> dict:
     spec = load_json("workloads", name)
     return dict(spec, name=name, config_spec=load_json("configs", spec["config"]),
                 traffic_spec=load_json("traffic", spec["traffic"]))
+
+
+def runner(kind: str):
+    """The module that runs a mix of this ``kind``: ``<kind>.py`` beside
+    this file, imported by its own name as ``run.py``'s modules are."""
+    if not (kind.isidentifier() and (HERE / f"{kind}.py").is_file()):
+        raise ValueError(f"no runner {kind}.py in {HERE}")
+    return importlib.import_module(kind)
 
 
 def metric_module(name: str):

@@ -5,11 +5,13 @@ The formulas of ``boslam_tpu_torch/geometry/se3.py`` (``quat_mul``,
 ``quat_to_mat``, ``so3_exp_quat``, ``_so3_left_jacobian``, ``exp``,
 ``pose_compose``, ``retract``) and ``boslam_tpu_torch/geometry/align.py``
 (``umeyama``, ``ate_rmse``), frozen at commit bd2752c and written again
-here; nothing imports the port.  Rotations of points go through matrix
-products (``mm``), whose operands ``tf32=True`` rounds to TF32 (10 bits of
-mantissa, as the tensor cores read float32): the reference computed in the
-precision below the configuration's float32, whatever shapes cuBLAS would
-send to its tensor cores.
+here, with the inverse and the logarithm of a pose for the essential
+graph's residual (``reference.pose_graph``); nothing imports the port.
+Rotations of points go through matrix products (``mm``), whose operands
+``tf32=True`` rounds to TF32 (10 bits of mantissa, as the tensor cores read
+float32): the reference computed in the precision below the
+configuration's float32, whatever shapes cuBLAS would send to its tensor
+cores.
 """
 
 from __future__ import annotations
@@ -94,6 +96,36 @@ def pose_compose(a, b, tf32: bool = False):
     q = quat_normalize(quat_mul(a[..., :4], b[..., :4]))
     t = rotate(quat_to_mat(a[..., :4]), b[..., 4:], tf32) + a[..., 4:]
     return torch.cat([q, t], -1)
+
+
+def pose_inv(p):
+    """The inverse pose: conjugate rotation, translation -R^T t."""
+    q = p[..., :4] * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=p.dtype,
+                                  device=p.device)
+    return torch.cat([q, -rotate(quat_to_mat(q), p[..., 4:])], -1)
+
+
+def log(p):
+    """Pose -> twist (omega, v), the inverse of ``exp``: the rotation
+    vector of the quaternion (taken with w >= 0), and v = V(omega)^-1 t."""
+    q = p[..., :4] * torch.where(p[..., :1] < 0, -1.0, 1.0)
+    w, u = q[..., :1], q[..., 1:]
+    s2 = torch.sum(u * u, -1, keepdim=True)
+    small = s2 < 1e-24
+    s = torch.sqrt(torch.where(small, 1.0, s2))
+    theta = 2.0 * torch.atan2(s, w)
+    omega = torch.where(small, 2.0 / w, theta / s) * u
+    t2 = torch.sum(omega * omega, -1)[..., None, None]
+    tiny = t2 < 1e-12
+    th = torch.sqrt(torch.where(tiny, 1.0, t2))
+    # V^-1 = I - W / 2 + (1 / th^2 - (1 + cos th) / (2 th sin th)) W^2
+    c = torch.where(tiny, 1.0 / 12.0 + t2 / 720.0,
+                    1.0 / th ** 2 - (1.0 + torch.cos(th))
+                    / (2.0 * th * torch.sin(th)))
+    W = hat(omega)
+    v = p[..., 4:]
+    Wv = rotate(W, v)
+    return torch.cat([omega, v - 0.5 * Wv + c[..., 0] * rotate(W, Wv)], -1)
 
 
 def retract(p, xi, tf32: bool = False):

@@ -3,12 +3,12 @@
     python3 slambench/run.py --workload CELL --seed N --seconds S --trace 0|1
 
 from the root of a checkout.  The cell is
-``slambench/workloads/CELL.json``; its traffic mix names the module that
-runs it (``frames.py`` or ``gba.py``).  The last line on standard output
-is one JSON object with ``correct``, ``attempted``, ``failed``,
-``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
-per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and
-last ``checks``: each number of the correctness check beside its limit,
+``slambench/workloads/CELL.json``; its traffic mix's ``kind`` names the
+module beside this file that runs it (``core.runner``).  The last line on
+standard output is one JSON object with ``correct``, ``attempted``,
+``failed``, ``metrics`` (the cell's end-to-end metrics, or with ``--trace
+1`` its per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``,
+and last ``checks``: each number of the correctness check beside its limit,
 which also end standard error.  Without a CUDA card, or with fewer cards
 than the cell needs, it exits 3 and prints no result; it exits 4 if JAX
 or the JAX package was loaded.
@@ -28,7 +28,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -70,7 +69,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = tf32
     torch.set_num_threads(min(4, os.cpu_count() or 1))
 
-    runner = importlib.import_module(spec["traffic_spec"]["kind"])
+    runner = core.runner(spec["traffic_spec"]["kind"])
     res = runner.run(spec, seed=args.seed, seconds=args.seconds,
                      trace=bool(args.trace), device=device,
                      rehearsal=args.device == "cpu", control=args.control,

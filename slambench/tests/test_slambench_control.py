@@ -1,6 +1,10 @@
 """The controls on the card at a size a test run holds: the reference
 computed with TF32 on, in the program's place, has to fail the cell's
-limits.  Each test decides inside itself whether there is a card."""
+limits; and ``hall.loop`` at its own size, sound and with its loop
+correction handing back the map unchanged.  Each test decides inside
+itself whether there is a card."""
+
+import json
 
 import numpy as np
 import pytest
@@ -10,6 +14,7 @@ import core
 import gba
 import problem
 import render
+import run
 from frames import kp_mismatch
 from reference.frontend import Frontend
 
@@ -67,3 +72,19 @@ def test_global_ba_reference_in_tf32_fails_the_cost_limits():
                                        tf32=True)
     gap = abs(float(c0) - float(c0_ref)) / float(c0_ref)
     assert gap > spec["limits"]["cost0_rel_gap"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, "loop_unchanged"])
+def test_loop_cell_on_the_card(capsys, monkeypatch, fault):
+    """30 s: an engine feeds all 320 frames and closes its loop."""
+    _card()
+    from test_slambench_faults import LOOP_FAULTS
+
+    if fault is not None:
+        LOOP_FAULTS[fault](monkeypatch, fault)
+    assert run.main(["--workload", "hall.loop", "--seed", str(2**31 + 101),
+                     "--seconds", "30"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["correct"] is (fault is None), line["checks"]
+    assert line["checks"]["loop_closures_missing"]["value"] == 0

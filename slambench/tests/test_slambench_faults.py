@@ -2,7 +2,9 @@
 a card skipped), with the timed path broken underneath: ``correct`` has to
 come out false for each fault the cell can have, and true without one.
 The cells run on one card, so the fault of an exchange between chips
-left out does not arise."""
+left out does not arise.  A rehearsal's window also runs until the mix's
+``rehearsal.frames`` are done, so that a local-BA solve (and in
+``hall.loop`` a loop closure) falls inside it however loaded the machine."""
 
 import json
 
@@ -12,8 +14,8 @@ import torch
 import run
 
 OFFSET = 2.0  # metres added to every other pose
-# Long enough on the CPU for a local-BA solve inside the window.
-SECONDS = {"hall.live": 5, "survey.track": 18, "survey.gba50k": 2}
+SECONDS = {"hall.live": 5, "survey.track": 18, "survey.gba50k": 2,
+           "hall.loop": 1}
 
 
 def _line(capsys, cell, seed=2**31 + 17):
@@ -96,6 +98,32 @@ def _global_ba(monkeypatch, fault):
     monkeypatch.setattr(gba, "global_bundle_adjustment", broken)
 
 
+def _loop(monkeypatch, fault):
+    import boslam_tpu_torch.slam as slam
+    import boslam_tpu_torch.solvers.pose_graph as pg
+
+    if fault == "loop_unchanged":  # the correction hands back its map
+        orig = slam.close_loop_update
+
+        def broken(cfg, state, kf_id, *args):
+            orig(cfg, state, kf_id, *args)
+            return state, state.kf_pose[kf_id.long()]
+
+        monkeypatch.setattr(slam, "close_loop_update", broken)
+        return
+    orig = pg.build_essential_edges
+
+    def thinned(cfg, state, *args, **kw):  # every other edge left out
+        edges = orig(cfg, state, *args, **kw)
+        valid = edges.valid.clone()
+        valid[1::2] = False
+        return edges._replace(valid=valid)
+
+    monkeypatch.setattr(pg, "build_essential_edges", thinned)
+
+
+LOOP_FAULTS = {"loop_unchanged": _loop, "graph_half": _loop}
+
 FRAME_FAULTS = {
     "unchanged": _frame_step,   # a step that returns its state unchanged
     "half": _features,          # half of the keypoints left out
@@ -107,7 +135,7 @@ FRAME_FAULTS = {
 }
 
 
-@pytest.mark.parametrize("cell", ["hall.live", "survey.track"])
+@pytest.mark.parametrize("cell", ["hall.live", "survey.track", "hall.loop"])
 def test_frame_cell_sound_run_is_correct(capsys, cell):
     line = _line(capsys, cell)
     assert line["correct"], line["checks"]
@@ -118,6 +146,15 @@ def test_frame_cell_fault_is_caught(capsys, monkeypatch, fault):
     FRAME_FAULTS[fault](monkeypatch, fault)
     line = _line(capsys, "hall.live")
     assert not line["correct"], line["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(LOOP_FAULTS))
+def test_loop_cell_fault_is_caught(capsys, monkeypatch, fault):
+    LOOP_FAULTS[fault](monkeypatch, fault)
+    line = _line(capsys, "hall.loop")
+    assert not line["correct"], line["checks"]
+    assert line["checks"]["pg_cost_rel_gap"]["value"] > \
+        line["checks"]["pg_cost_rel_gap"]["limit"]
 
 
 @pytest.mark.parametrize("fault", [None, "unchanged", "half", "altered"])

@@ -2,6 +2,7 @@
 files the harness finds by name."""
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -69,7 +70,7 @@ def test_listed_files_are_found_by_name():
         spec = core.cell(w["name"])
         for key in ("config", "traffic", "chips", "why"):
             assert spec[key] == w[key]
-        assert spec["traffic_spec"]["kind"] in ("frames", "gba")
+        assert callable(core.runner(spec["traffic_spec"]["kind"]).run)
         assert set(spec["limits"])
 
 
@@ -83,20 +84,52 @@ def test_metric_files_agree_with_the_listing(metric):
     assert mod.read({}) is None  # nothing to read: nothing reported
 
 
-def test_a_dropped_in_cell_is_found_without_edits(tmp_path):
+THIN_RUNNER = """import frames
+
+
+def run(spec, **kw):
+    import boslam_tpu_torch.slam as slam_module
+
+    return frames.run_cell(spec, [frames.LocalBaProbe(slam_module)], **kw)
+"""
+
+
+@pytest.mark.parametrize("kind", ["frames", "thin"])
+def test_a_dropped_in_cell_is_found_without_edits(tmp_path, kind):
+    """A cell, and with a new kind its mix and runner module, added as
+    files to a copy of the checkout: found by name, and with a new kind
+    rehearsed to a result line, with no file of the copy edited."""
     root = tmp_path / "checkout"
     shutil.copytree(core.HERE, root / "slambench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(core.ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
     extra = dict(core.load_json("workloads", "hall.live"), why="an extra cell")
-    (root / "slambench" / "workloads" / "hall.extra.json").write_text(
-        json.dumps(extra))
+    bench = root / "slambench"
+    if kind != "frames":
+        mix = dict(core.load_json("traffic", "hall_replay_chunk1"), kind=kind)
+        (bench / "traffic" / "thin_mix.json").write_text(json.dumps(mix))
+        (bench / f"{kind}.py").write_text(THIN_RUNNER)
+        extra["traffic"] = "thin_mix"
+    (bench / "workloads" / "hall.extra.json").write_text(json.dumps(extra))
     code = ("import core; c = core.cell('hall.extra'); "
             "print(c['config_spec']['slam']['orb']['n_features'], "
-            "'hall.extra' in core.names('workloads'))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=root / "slambench",
+            "'hall.extra' in core.names('workloads'), "
+            "core.runner(c['traffic_spec']['kind']).__name__)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=bench,
                          capture_output=True, text=True, check=True).stdout
-    assert out.split() == ["512", "True"]
+    assert out.split() == ["512", "True", kind]
+    if kind != "frames":
+        # The program is the checkout's; this copy holds the harness only.
+        env = dict(os.environ, PYTHONPATH=str(core.ROOT))
+        p = subprocess.run(
+            [sys.executable, "slambench/run.py", "--workload", "hall.extra",
+             "--seed", str(2**31 + 21), "--seconds", "1", "--device", "cpu"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        assert p.returncode == 0, p.stderr[-2000:]
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        assert line["correct"] and line["attempted"] >= 8, line
+    assert all(p.read_bytes() == b for p, b in before.items())
 
 
 def test_without_the_program_the_run_fails(tmp_path):
