@@ -107,6 +107,9 @@ class TrackerConfig:
     # score — one aliased top score must not sink the whole frame.  All
     # candidates are matched + solved in one vmapped dispatch.
     reloc_candidates: int = 4
+    # Refined inliers a relocalization also needs beyond ``min_inliers``
+    # (ORB-SLAM2 accepts one at 50): 0 adds nothing, the reference's rule.
+    reloc_min_inliers: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

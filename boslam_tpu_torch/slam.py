@@ -381,6 +381,13 @@ class SlamSystem:
         self.metrics: List[dict] = []
         self.n_loops_closed = 0
         self.n_global_ba = 0
+        # Relocalization attempts (frames that took the lost branch), those
+        # that recovered a pose, and those matched against the whole map
+        # (no vocabulary yet) rather than BoW candidates: counted from the
+        # packed rows at the flush, with no read of their own.
+        self.n_reloc_tries = 0
+        self.n_reloc_ok = 0
+        self.n_reloc_whole_map = 0
         self._vocab_trained_at = -1  # n_kf at last vocabulary (re)train
         # In-flight deferred local BA (async mapping), merged at the next
         # flush.
@@ -513,6 +520,12 @@ class SlamSystem:
             if r[O_RELOC] > 0.5:
                 rec["event"] = "relocalize"
                 rec["reloc_ok"] = bool(r[O_RELOC] > 1.5)
+                # The vocabulary is trained only below, after this drain's
+                # rows: it was as it is now when these frames ran.
+                rec["reloc_whole_map"] = self._vocab_trained_at < 0
+                self.n_reloc_tries += 1
+                self.n_reloc_ok += rec["reloc_ok"]
+                self.n_reloc_whole_map += rec["reloc_whole_map"]
             elif r[O_LOST] > 0.5:
                 rec["event"] = "lost"
             elif r[O_KF] > 0.5:

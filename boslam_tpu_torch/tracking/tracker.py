@@ -299,8 +299,9 @@ def track_frame(cfg: SlamConfig, map_state, track: TrackState, feats,
 def _reloc_solve(cfg: SlamConfig, pts_w, feats, ok, key):
     """Shared tail of relocalization, batched over candidates ([R, N]
     inputs): RANSAC PnP (reprojection-scored consensus, hypotheses from
-    depth-backed minimal sets) + robust GN refine.  Returns (good [R],
-    pose [R, 7], n_inliers [R])."""
+    depth-backed minimal sets) + robust GN refine, accepted with at least
+    ``min_inliers`` and ``reloc_min_inliers`` refined inliers.  Returns
+    (good [R], pose [R, 7], n_inliers [R])."""
     res = ransac_pnp(
         cfg, pts_w, feats.uv, feats.xyz, feats.has_depth, ok, key,
         n_hypotheses=cfg.tracker.ransac_iters,
@@ -310,7 +311,8 @@ def _reloc_solve(cfg: SlamConfig, pts_w, feats, ok, key):
         cfg, res.pose, pts_w, feats.uv, feats.depth,
         feats.has_depth & ok, ok, feats.octave, inliers0=res.inliers,
     )
-    good = res.ok & (refined.n_inliers >= cfg.tracker.min_inliers)
+    need = max(cfg.tracker.min_inliers, cfg.tracker.reloc_min_inliers)
+    good = res.ok & (refined.n_inliers >= need)
     return good, refined.pose, refined.n_inliers
 
 
@@ -387,17 +389,22 @@ def relocalize(cfg: SlamConfig, map_state, loop_state, track: TrackState,
     The reference's ``lax.cond`` on ``vocab_ready`` is a host branch here,
     counted by ``sync``.  ``key`` is a ``torch.Generator`` or the RANSAC
     Gumbel noise [R, H, N].  Returns (TrackState, good, n_inliers).
+    ``sync``'s spans: ``reloc.candidates`` (the BoW retrieval and
+    ``search_by_bow``, or the whole-map match) and ``reloc.solve`` (RANSAC
+    PnP, the refine and the choice of the candidate).
     """
     sync = HostSync() if sync is None else sync
-    if sync.flag(loop_state.vocab_ready):
-        pts_w, ok = _bow_candidates(cfg, map_state, loop_state, feats)
-    else:
-        pts_w, ok = _global_candidates(cfg, map_state, feats)
-    good_r, pose_r, ninl_r = _reloc_solve(cfg, pts_w, feats, ok, key)
-    best = torch.argmax(torch.where(good_r, ninl_r, -1)).reshape(1)
-    good = good_r[best][0]
-    pose = pose_r[best][0]
-    n_inl = ninl_r[best][0]
+    with sync.span("reloc.candidates"):
+        if sync.flag(loop_state.vocab_ready):
+            pts_w, ok = _bow_candidates(cfg, map_state, loop_state, feats)
+        else:
+            pts_w, ok = _global_candidates(cfg, map_state, feats)
+    with sync.span("reloc.solve"):
+        good_r, pose_r, ninl_r = _reloc_solve(cfg, pts_w, feats, ok, key)
+        best = torch.argmax(torch.where(good_r, ninl_r, -1)).reshape(1)
+        good = good_r[best][0]
+        pose = pose_r[best][0]
+        n_inl = ninl_r[best][0]
     # Re-center the reference keyframe on the recovered pose: local-scope
     # tracking builds its map around last_kf.
     cam_w = se3.pose_inv(pose)[4:]

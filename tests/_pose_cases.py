@@ -5,6 +5,7 @@ a seed; imports neither JAX nor the JAX package.
 * ``track``: tracking's passes, B = 1 (pose [7], edges [N]);
 * ``reloc``: relocalization's candidates, pose [R, 7] and points [R, N, 3]
   against the frame's keypoints [N] (broadcast), with RANSAC's inliers;
+  ``reloc1000`` the same at ORB-SLAM2's 1000 features;
 * ``verify``: loop verification's batch, every input per request
   ([B, N, ...], the requests' own keypoints), with RANSAC's inliers.
 
@@ -26,6 +27,7 @@ CASES = {
     "track512": ("track", 512, None, None),
     "track1024": ("track", 1024, None, None),
     "reloc": ("reloc", 512, 4, None),
+    "reloc1000": ("reloc", 1000, 4, None),
     "verify": ("verify", 512, 3, None),
     "no_mask": ("track", 512, None, "no_mask"),
     "few_edges": ("track", 512, None, "few_edges"),

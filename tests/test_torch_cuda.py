@@ -214,6 +214,31 @@ def test_fused_match_kernel_matches_plain(cuda_device, m, r_inf, mutual, ratio):
 
 
 @pytest.mark.cuda
+def test_fused_match_at_relocalizations_size(cuda_device):
+    """Relocalization's whole-map call at ORB-SLAM2's 1000 features against
+    a 65,536-slot pool: no window, ``max_dist`` 50, ratio 0.85, mutual.
+    1000 rows are 7 full 128-row chunks and a ragged one of 104."""
+    n, m = 1000, 65536
+    prob = _match_problem(cuda_device, n, m, seed=5, r_inf=True)
+    # One copy of each frame row, 1-40 bits off, so that the ratio test
+    # keeps most rows (the planted quarter holds ~16 copies of each).
+    rng = np.random.default_rng(6)
+    da = prob[0].cpu().numpy().view(np.uint32)
+    db = rng.integers(0, 2**32, size=(m, 8), dtype=np.uint64).astype(np.uint32)
+    cols = rng.permutation(m)[:n]
+    flips = rng.random((n, 256)) < rng.uniform(0.004, 0.16, (n, 1))
+    db[cols] = da ^ np.packbits(flips, axis=1, bitorder="little").view(np.uint32)
+    prob[4] = torch.from_numpy(db.view(np.int32)).to(cuda_device)
+    kw = dict(max_dist=50, ratio=0.85, mutual=True)
+    idx, ok, dist = hc.fused_match_top2(*prob, **kw)
+    idx_p, ok_p, dist_p = hc.fused_match_top2_plain(*prob, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(idx, idx_p)
+    assert torch.equal(dist[ok_p], dist_p[ok_p])
+    assert int(ok_p[896:].sum()) > 0  # matches in the ragged chunk too
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("setting", _match_cases.SETTINGS,
                          ids=lambda s: f"mutual{int(s['mutual'])}-ratio{s['ratio']}")
 @pytest.mark.parametrize("name", list(_match_cases.CASES))
