@@ -5,7 +5,9 @@ Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
 shared library per source with a plain C interface, and bound with
 ``ctypes``.  A library's name carries a hash of its source and flags, so a
 stale build is never loaded.  ``LAUNCHES`` counts kernel launches by name;
-each wrapper adds one where it launches its kernel, and nowhere else.
+each wrapper adds one where it launches its kernel, and nowhere else.  It
+also counts local BA's CUDA-graph replays and captures
+(``local_ba_graph``, ``local_ba_capture``; ``solvers.local_ba.SolveGraph``).
 ``launch_floor`` is no kernel of the port: an empty kernel built the same
 way, for measuring what one launch costs on the card.
 """
@@ -44,7 +46,8 @@ KERNELS = {
 _SOURCES = dict(KERNELS, launch_floor=("launch_floor.cu", "boslam_launch_floor",
                                        [_P]))
 
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in (*KERNELS, "local_ba_graph",
+                                 "local_ba_capture")}
 BUILD_LOGS: dict = {}  # name -> the compiler's report of a verbose build
 _LIBS: dict = {}
 _LOCK = threading.Lock()

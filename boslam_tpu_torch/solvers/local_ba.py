@@ -2,7 +2,9 @@
 damped Gauss-Newton (``boslam_tpu.solvers.local_ba``): inline
 (``local_bundle_adjustment``, solve and write back) or deferred
 (``deferred_local_ba`` solves on a snapshot, ``merge_local_ba`` lands the
-result later under per-entry identity guards).
+result later under per-entry identity guards).  On a card both replay a
+CUDA graph of the solve (``SolveGraph``): the inline one shared by the
+process's engines of one configuration, the deferred one an engine's own.
 
 Static window: N_OPT optimized + N_FIX fixed cameras and a compacted active
 landmark set of MAX_LOCAL points.  The edge set is one possible edge per
@@ -14,6 +16,7 @@ system is a dense (N_OPT*6)^2 Cholesky.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,6 +25,7 @@ from boslam_tpu_torch.config import SlamConfig
 from boslam_tpu_torch.geometry import camera as cam_mod
 from boslam_tpu_torch.geometry import se3
 from boslam_tpu_torch.mapping.map_state import MapState
+from boslam_tpu_torch.ops.build import LAUNCHES
 from boslam_tpu_torch.solvers import robust as robust_mod
 from boslam_tpu_torch.solvers.ba_core import inv3x3
 from boslam_tpu_torch.utils.tensor_ops import (
@@ -288,9 +292,10 @@ def _solve_local_ba(cfg: SlamConfig, state: MapState, center):
     )
 
 
-def local_bundle_adjustment(cfg: SlamConfig, state: MapState, center):
-    """Run local BA around keyframe ``center``; returns (MapState, stats)
-    with the optimized poses and points written back."""
+def inline_local_ba(cfg: SlamConfig, state: MapState, center):
+    """The inline solve, eagerly: local BA around keyframe ``center`` with
+    its write-back, as (kf_pose [K, 7], pt_xyz [P, 3], stats) of the whole
+    map."""
     K = state.kf_pose.shape[0]
     P = state.pt_xyz.shape[0]
     opt_ids, opt_cam_mask, opt_poses, local_ids, slot_used, pts, stats = (
@@ -300,7 +305,17 @@ def local_bundle_adjustment(cfg: SlamConfig, state: MapState, center):
     kf_pose[torch.where(opt_cam_mask, opt_ids, K)] = opt_poses
     pt_xyz = torch.cat([state.pt_xyz, state.pt_xyz[:1]])
     pt_xyz[torch.where(slot_used, local_ids, P)] = pts
-    return state._replace(kf_pose=kf_pose[:K], pt_xyz=pt_xyz[:P]), stats
+    return kf_pose[:K], pt_xyz[:P], stats
+
+
+def local_bundle_adjustment(cfg: SlamConfig, state: MapState, center):
+    """Run local BA around keyframe ``center``; returns (MapState, stats)
+    with the optimized poses and points written back.  On a card the solve
+    replays the process's CUDA graph for ``cfg`` and the map's shapes
+    (``inline_graph``); on the CPU it runs eagerly."""
+    solve = inline_graph(cfg, state) or functools.partial(inline_local_ba, cfg)
+    kf_pose, pt_xyz, stats = solve(state, center)
+    return state._replace(kf_pose=kf_pose, pt_xyz=pt_xyz), stats
 
 
 class DeferredBaResult(NamedTuple):
@@ -365,34 +380,100 @@ def merge_local_ba(cfg: SlamConfig, state: MapState,
     return state._replace(kf_pose=kf_pose, pt_xyz=pt_xyz)
 
 
-class DeferredBaGraph:
-    """``deferred_local_ba`` captured once in a CUDA graph and replayed.
+# The map arrays the solve reads: a graph copies only these in.  The
+# deferred solve's guards read two more.
+SOLVE_FIELDS = ("kf_pose", "pt_xyz", "covis", "kf_valid", "kf_obs_pt",
+                "pt_valid", "kf_kp_valid", "kf_uv", "kf_depth", "kf_octave")
+DEFERRED_FIELDS = SOLVE_FIELDS + ("kf_seq", "pt_first_kf")
 
-    Eager, the solve enqueues a few thousand small operations, which costs
+
+def solve_inputs(state: MapState, fields) -> MapState:
+    """A copy of ``state``'s ``fields``, every other field left empty (a
+    solve that read one would fail)."""
+    return MapState(*(t.clone() if name in fields else t.new_empty(0)
+                      for name, t in zip(MapState._fields, state)))
+
+
+def _clone(out):
+    """A copy of a (nested) tuple of tensors."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    parts = [_clone(v) for v in out]
+    return type(out)(*parts) if hasattr(out, "_fields") else tuple(parts)
+
+
+class SolveGraph:
+    """A local-BA solve ``fn(cfg, state, center)`` captured once in a CUDA
+    graph and replayed.
+
+    Eager, the solve enqueues several hundred small operations, which costs
     the host tens of ms per keyframe event; a replay costs the copies of
-    the map into the graph's static inputs and one launch.  All shapes are
-    static in ``cfg``, so one capture serves every solve of an engine.
-    Call it on the stream the solves run on (the capture itself runs on a
-    side stream of its own, after a device synchronization)."""
+    the map's ``fields`` (those the solve reads) into the graph's static
+    inputs, one launch and the copies of its outputs, which the caller
+    keeps while the next replay overwrites the graph's buffers.  All
+    shapes are static in ``cfg``, so one capture serves every solve of a
+    map of the same shapes.  Replay it on one stream at a time: every
+    caller shares the static buffers.  ``ops.build.LAUNCHES`` counts
+    captures (``local_ba_capture``) and replays (``local_ba_graph``)."""
 
-    def __init__(self, cfg: SlamConfig, state: MapState):
-        self.cfg = cfg
-        self.static = MapState(*(t.clone() for t in state))
-        self.center = torch.zeros((), dtype=torch.int32,
-                                  device=state.kf_pose.device)
-        # One eager solve first: it creates the cuBLAS / cuSOLVER handles
-        # and workspaces, which a capture cannot.
-        deferred_local_ba(cfg, self.static, self.center)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = deferred_local_ba(cfg, self.static, self.center)
+    def __init__(self, fn, cfg: SlamConfig, state: MapState, fields):
+        self.fields = fields
+        dev = state.kf_pose.device
+        self.static = solve_inputs(state, fields)
+        self.center = torch.zeros((), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            # One eager solve first: it creates the cuBLAS / cuSOLVER
+            # handles and workspaces, which a capture cannot.
+            fn(cfg, self.static, self.center)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = fn(cfg, self.static, self.center)
+        LAUNCHES["local_ba_capture"] += 1
 
-    def __call__(self, state: MapState, center) -> DeferredBaResult:
-        for dst, src in zip(self.static, state):
-            dst.copy_(src)
+    def __call__(self, state: MapState, center):
+        for name in self.fields:
+            getattr(self.static, name).copy_(getattr(state, name))
         self.center.copy_(center)
         self.graph.replay()
-        return DeferredBaResult(
-            *(t.clone() for t in self.out[:-1]),
-            stats=LocalBaStats(*(t.clone() for t in self.out.stats)),
-        )
+        LAUNCHES["local_ba_graph"] += 1
+        return _clone(self.out)
+
+
+def graph_key(cfg: SlamConfig, state: MapState, fields) -> tuple:
+    """Every value a capture of the solve over ``state``'s ``fields``
+    bakes in: the intrinsics, the octave scale, the depth weight, the
+    whole ``local_ba`` section, TF32's switch and the fields' shapes,
+    dtypes and device."""
+    cam = cfg.camera
+    arrays = tuple((tuple(t.shape), t.dtype, t.device)
+                   for t in (getattr(state, name) for name in fields))
+    return ((cam.fx, cam.fy, cam.cx, cam.cy), cfg.orb.scale_factor,
+            cfg.tracker.depth_weight, cfg.local_ba,
+            torch.backends.cuda.matmul.allow_tf32, arrays)
+
+
+# One inline graph per configuration and device for the process: the
+# engines of one configuration share it, so a fresh engine pays no capture.
+_INLINE_GRAPHS: dict = {}
+
+
+def inline_graph(cfg: SlamConfig, state: MapState) -> SolveGraph | None:
+    """The inline solve's graph for ``cfg`` and ``state``'s shapes,
+    captured at its first call; None for a map on the CPU."""
+    if state.kf_pose.device.type != "cuda":
+        return None
+    key = graph_key(cfg, state, SOLVE_FIELDS)
+    graph = _INLINE_GRAPHS.get(key)
+    if graph is None:
+        graph = _INLINE_GRAPHS[key] = SolveGraph(inline_local_ba, cfg, state,
+                                                 SOLVE_FIELDS)
+    return graph
+
+
+class DeferredBaGraph(SolveGraph):
+    """``deferred_local_ba`` captured once for an engine's async mapping
+    and replayed on the stream its solves run on (the capture itself runs
+    on a side stream of its own, after a device synchronization)."""
+
+    def __init__(self, cfg: SlamConfig, state: MapState):
+        super().__init__(deferred_local_ba, cfg, state, DEFERRED_FIELDS)

@@ -52,8 +52,9 @@ Phases, each fatal on failure:
      ``run_sequence(..., async_mapping=True)``: 0 lost frames, the JAX
      reference's async keyframe events, the ATE within the bound of the
      reference's async ATE, a landed solve with cost1 <= cost0, no dropped
-     solve, one launch per frame of each frontend kernel; the CUDA graph of
-     the deferred solve held bit-equal to the eager solve on one snapshot;
+     solve, one launch per frame of each frontend kernel; the CUDA graphs of
+     the deferred and the inline solve held bit-equal to the eager solves
+     on one snapshot;
      (b) the same run with ``mapping_device=0`` (the solves on a second
      CUDA stream): the same events and every pose within 1e-6 m of (a); fps
      after the warm-up, host ms of keyframe frames and of flushes, and host
@@ -1121,32 +1122,41 @@ def run_mode(cfg, traj, frames, mode, fc):
 
 
 def check_graph_replay(cfg, slam):
-    """The CUDA graph the async run captured against the eager solve on one
-    snapshot (the map ``slam`` ended with, around its latest keyframe):
-    every output bit-equal."""
+    """The CUDA graphs of local BA against the eager solves on one snapshot
+    (the map ``slam`` ended with, around its latest keyframe): the graph
+    the async run captured against ``deferred_local_ba``, and the
+    process's inline graph for ``cfg`` (captured by the inline run before)
+    against ``inline_local_ba``; every output bit-equal."""
     import torch
 
     from boslam_tpu_torch.mapping.map_state import latest_kf_slot
-    from boslam_tpu_torch.solvers.local_ba import deferred_local_ba
+    from boslam_tpu_torch.solvers import local_ba
 
     if slam._ba_graph is None:
         fail("async: the deferred solve was not captured in a CUDA graph")
     center = latest_kf_slot(slam.map)
-    eager = deferred_local_ba(cfg, slam.map, center)
-    replay = slam._ba_graph(slam.map, center)
+    checks = {
+        "deferred": (local_ba.DeferredBaResult._fields[:-1],
+                     local_ba.deferred_local_ba(cfg, slam.map, center),
+                     slam._ba_graph(slam.map, center)),
+        "inline": (("kf_pose", "pt_xyz"),
+                   local_ba.inline_local_ba(cfg, slam.map, center),
+                   local_ba.inline_graph(cfg, slam.map)(slam.map, center)),
+    }
     torch.cuda.synchronize()
-    pairs = list(zip(eager[:-1], replay[:-1])) + list(zip(eager.stats,
-                                                          replay.stats))
-    differ = [name for name, (a, b) in zip(
-        eager._fields[:-1] + eager.stats._fields, pairs) if not torch.equal(a, b)]
-    print(f"[async] graph replay vs eager solve on one snapshot: "
-          f"{'bit-equal' if not differ else 'differ in ' + str(differ)}; "
-          f"cost {float(eager.stats.cost0):.3f} -> "
-          f"{float(eager.stats.cost1):.3f}, {int(eager.stats.n_edges)} edges",
-          flush=True)
-    if differ:
-        fail(f"deferred local BA: the CUDA graph's replay differs from the "
-             f"eager solve in {differ}")
+    for mode, (names, eager, replay) in checks.items():
+        pairs = zip(names + local_ba.LocalBaStats._fields,
+                    list(eager[:-1]) + list(eager[-1]),
+                    list(replay[:-1]) + list(replay[-1]))
+        differ = [name for name, a, b in pairs if not torch.equal(a, b)]
+        stats = eager[-1]
+        print(f"[async] {mode} graph replay vs eager solve on one snapshot: "
+              f"{'bit-equal' if not differ else 'differ in ' + str(differ)}; "
+              f"cost {float(stats.cost0):.3f} -> {float(stats.cost1):.3f}, "
+              f"{int(stats.n_edges)} edges", flush=True)
+        if differ:
+            fail(f"{mode} local BA: the CUDA graph's replay differs from the "
+                 f"eager solve in {differ}")
 
 
 def check_async(cfg, traj, frames, fc, card):

@@ -13,7 +13,9 @@ within 1e-4, descriptors exact wherever the angle bin agrees, bins differing
 only at a bin edge or at ill-conditioned moments: the moments' summation
 order differs); ``fused_match_top2`` indices, masks and matched distances
 exact; async mapping's CUDA-graph solve and its second-stream placement
-bit-equal to the eager solve and to the same-stream run; the multi-sequence
+bit-equal to the eager solve and to the same-stream run; inline engines
+with local BA replayed from the process's CUDA graph bit-equal to one
+solving eagerly; the multi-sequence
 engine bit-equal to single engines on the card; one-rank distributed global
 BA within tests/test_parallel.py's tolerances of the single-device solver;
 ``pose_gn`` against ``optimize_pose_plain`` on the same CUDA inputs at the
@@ -161,14 +163,16 @@ def test_wrappers_count_launches_and_reject_mixed_devices(cuda_device):
     idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
     fc.extract_patches(gray, idx, idx)
     assert fc.LAUNCHES == {"fast_rank": 1, "extract_patches": 1, "fused_match": 0,
-                           "pose_gn": 0}
+                           "pose_gn": 0, "local_ba_graph": 0,
+                           "local_ba_capture": 0}
     fc.fast_rank_plain(gray, 20.0, 7.0, _BOOST_HI, _LEVEL_BORDER)
     assert fc.LAUNCHES["fast_rank"] == 1
     fc.fast_rank_levels([gray, gray[:100].contiguous()], 20.0, 7.0, _BOOST_HI,
                         _LEVEL_BORDER)
     fc.describe_patches([gray, gray], [idx, idx], [idx, idx])
     assert fc.LAUNCHES == {"fast_rank": 2, "extract_patches": 2, "fused_match": 0,
-                           "pose_gn": 0}
+                           "pose_gn": 0, "local_ba_graph": 0,
+                           "local_ba_capture": 0}
     with pytest.raises(ValueError):
         fc.extract_patches(gray, idx.cpu(), idx.cpu())
     with pytest.raises(ValueError):
@@ -395,6 +399,85 @@ def test_async_mapping_on_a_second_stream_matches_the_same_stream(cuda_device):
     for a, b in zip(list(eager[:-1]) + list(eager.stats),
                     list(replay[:-1]) + list(replay.stats)):
         assert torch.equal(a, b)
+
+
+def _inline_run(cfg, frames, rows):
+    from boslam_tpu_torch import slam as slam_mod
+
+    step = slam_mod.frame_step_core
+
+    def recorded(*args):
+        out = step(*args)
+        rows.append(out[-1].clone())
+        return out
+
+    slam_mod.frame_step_core = recorded
+    try:
+        slam = slam_mod.SlamSystem(cfg, chunk=8)
+        for f in frames:
+            slam.feed(*f)
+        slam.flush()
+    finally:
+        slam_mod.frame_step_core = step
+    return slam, slam.trajectory()[1]
+
+
+@pytest.mark.cuda
+def test_inline_local_ba_graph_matches_the_eager_solve(cuda_device,
+                                                       monkeypatch):
+    """Inline engines at a small size with local BA replayed from the
+    process's CUDA graph, against one with the solve enqueued eagerly: the
+    packed rows, the trajectory and the map's poses and points bit-equal;
+    one capture for two engines of one configuration and one more for
+    another configuration, one replay per keyframe event; a map returned
+    by one replay unchanged by the next."""
+    import dataclasses
+
+    from boslam_tpu_torch.mapping.map_state import latest_kf_slot
+    from boslam_tpu_torch.solvers import local_ba
+
+    cfg = SlamConfig.from_dict(dict(
+        camera=dict(width=320, height=240, fx=130.0, fy=130.0, cx=160.0,
+                    cy=120.0),
+        orb=dict(n_features=256, n_levels=4),
+        map=dict(max_keyframes=32, max_points=4096)))
+    traj = synthetic.orbit_trajectory(24, radius=0.5, yaw_amplitude=0.2)
+    frames = synthetic.render_sequence(cfg.camera, traj)
+    monkeypatch.setattr(local_ba, "_INLINE_GRAPHS", {})
+    before = dict(fc.LAUNCHES)
+    rows = {"graph": [], "graph2": [], "eager": []}
+    a, est_a = _inline_run(cfg, frames, rows["graph"])
+    b, est_b = _inline_run(cfg, frames, rows["graph2"])
+    solves = sum(1 for m in a.metrics if m.get("event") == "keyframe")
+    assert solves >= 4
+    assert fc.LAUNCHES["local_ba_capture"] - before["local_ba_capture"] == 1
+    assert fc.LAUNCHES["local_ba_graph"] - before["local_ba_graph"] == \
+        2 * solves
+    with monkeypatch.context() as m:
+        m.setattr(local_ba, "inline_graph", lambda cfg, state: None)
+        eager, est_e = _inline_run(cfg, frames, rows["eager"])
+    assert fc.LAUNCHES["local_ba_graph"] - before["local_ba_graph"] == \
+        2 * solves
+    for run, est, slam in (("graph", est_a, a), ("graph2", est_b, b)):
+        assert torch.equal(torch.stack(rows[run]), torch.stack(rows["eager"]))
+        np.testing.assert_array_equal(est, est_e)
+        assert torch.equal(slam.map.kf_pose, eager.map.kf_pose)
+        assert torch.equal(slam.map.pt_xyz, eager.map.pt_xyz)
+
+    center = latest_kf_slot(a.map)
+    st1, stats1 = local_ba.local_bundle_adjustment(cfg, a.map, center)
+    kept = [t.clone() for t in (st1.kf_pose, st1.pt_xyz, *stats1)]
+    st2, _ = local_ba.local_bundle_adjustment(
+        cfg, a.map._replace(pt_xyz=a.map.pt_xyz + 0.01), center)
+    assert not torch.equal(st2.pt_xyz, st1.pt_xyz)
+    for k, t in zip(kept, (st1.kf_pose, st1.pt_xyz, *stats1)):
+        assert torch.equal(k, t)
+
+    other = cfg.replace(local_ba=dataclasses.replace(cfg.local_ba,
+                                                     lm_lambda0=2e-4))
+    local_ba.local_bundle_adjustment(other, a.map, center)
+    assert fc.LAUNCHES["local_ba_capture"] - before["local_ba_capture"] == 2
+    assert len(local_ba._INLINE_GRAPHS) == 2
 
 
 @pytest.mark.cuda

@@ -183,3 +183,90 @@ def test_local_bundle_adjustment_matches_jax(event):
                                atol=BA_POSE_ATOL)
     np.testing.assert_allclose(got_state.pt_xyz.numpy(), np.asarray(ref_state.pt_xyz),
                                atol=1e-5)
+
+
+def _graph_cfg(section=None, field=None, value=None):
+    from boslam_tpu_torch.config import SlamConfig
+
+    d = {"map": dict(max_keyframes=16, max_points=1024)}
+    if section is not None:
+        d[section] = dict(d.get(section, {}), **{field: value})
+    return SlamConfig.from_dict(d)
+
+
+@pytest.mark.parametrize("section, field, value, same", [
+    ("camera", "fx", 300.0, False),
+    ("camera", "cy", 100.0, False),
+    ("local_ba", "lm_lambda0", 2e-4, False),
+    ("local_ba", "max_local_points", 1024, False),
+    ("tracker", "depth_weight", 2.0, False),
+    ("orb", "scale_factor", 1.3, False),
+    ("map", "max_points", 2048, False),  # another pool: other shapes
+    (None, None, None, True),
+    ("loop", "vocab_size", 512, True),   # read by no solve
+    ("camera", "width", 320, True),
+])
+def test_graph_key_follows_every_baked_in_value(section, field, value, same):
+    """Two configurations share an inline graph exactly when every value
+    its capture bakes in is equal."""
+    from boslam_tpu_torch.solvers import local_ba
+
+    def key(cfg):
+        return local_ba.graph_key(cfg, map_state.empty_map(cfg, "cpu"),
+                                  local_ba.SOLVE_FIELDS)
+
+    base, other = _graph_cfg(), _graph_cfg(section, field, value)
+    assert (key(other) == key(base)) is same
+    assert key(other) == key(_graph_cfg(section, field, value))
+
+
+def test_local_bundle_adjustment_on_the_cpu_builds_no_graph(event):
+    """A CPU map runs the eager solve: no capture, no replay, no cache
+    entry; the solve's own poses and points land in their slots, and the
+    other fields are the input's own tensors."""
+    from boslam_tpu_torch.ops import build
+    from boslam_tpu_torch.solvers import local_ba
+
+    cfg, kf = event["cfg_t"], _slot(event["kf_id"])
+    state = _port(event["states"][6])
+    graphs, launches = dict(local_ba._INLINE_GRAPHS), dict(build.LAUNCHES)
+    assert local_ba.inline_graph(cfg, state) is None
+    got_state, got = local_ba.local_bundle_adjustment(cfg, state, kf)
+    assert local_ba._INLINE_GRAPHS == graphs and build.LAUNCHES == launches
+
+    opt_ids, opt_mask, opt_pose, pt_ids, pt_used, pts, stats = (
+        local_ba._solve_local_ba(cfg, state, kf))
+    kf_pose, pt_xyz = state.kf_pose.clone(), state.pt_xyz.clone()
+    kf_pose[opt_ids[opt_mask].long()] = opt_pose[opt_mask]
+    pt_xyz[pt_ids[pt_used]] = pts[pt_used]
+    assert int(opt_mask.sum()) > 1 and int(pt_used.sum()) > 100
+    assert torch.equal(got_state.kf_pose, kf_pose)
+    assert torch.equal(got_state.pt_xyz, pt_xyz)
+    for a, b in zip(got, stats):
+        assert torch.equal(a, b)
+    for name in map_state.MapState._fields:
+        if name not in ("kf_pose", "pt_xyz"):
+            assert getattr(got_state, name) is getattr(state, name), name
+
+
+@pytest.mark.parametrize("solve, fields", [
+    ("inline_local_ba", "SOLVE_FIELDS"),
+    ("deferred_local_ba", "DEFERRED_FIELDS"),
+])
+def test_solve_reads_only_the_fields_its_graph_copies_in(event, solve, fields):
+    """A graph's static map holds only the fields it copies in
+    (``solve_inputs``): the solve on it equals the solve on the whole map
+    bit for bit, inline and deferred."""
+    from boslam_tpu_torch.solvers import local_ba
+
+    cfg, kf = event["cfg_t"], _slot(event["kf_id"])
+    state = _port(event["states"][6])
+    fn = getattr(local_ba, solve)
+    inputs = local_ba.solve_inputs(state, getattr(local_ba, fields))
+    assert inputs.pt_desc.numel() == 0 and inputs.kf_pose.numel() > 0
+    got, ref = local_ba._clone(fn(cfg, inputs, kf)), fn(cfg, state, kf)
+    flat = [(a, b) for a, b in zip(got, ref) if isinstance(a, torch.Tensor)]
+    flat += list(zip(got[-1], ref[-1]))
+    assert len(flat) == len(ref) - 1 + 4
+    for a, b in flat:
+        assert torch.equal(a, b)
